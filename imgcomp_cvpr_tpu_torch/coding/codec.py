@@ -2,7 +2,8 @@
 container half of imgcomp_cvpr_tpu/coding/codec.py:41-146,586-1041).
 
 The container bytes are the JAX package's, byte for byte, for the same
-inputs and impl id; the port writes its own impl id IMPL_CUDA = 5 (ids 5-7
+inputs and impl id; the port writes its own impl ids, IMPL_CUDA = 5 (the
+K=3 wavefront codec) and IMPL_CUDA_PLANAR = 6 (the planar codec; ids 5-7
 were free), since logits computed on a GPU are not bitwise those of a TPU
 and a stream decodes only through the implementation that encoded it.
 Only container v11 is parsed (the frozen v8-v10 branches are not ported).
@@ -20,9 +21,10 @@ MAGIC = b'\xa7'
 VERSION = 11
 
 IMPL_DIRECT, IMPL_CACHED, IMPL_RING, IMPL_PALLAS, IMPL_PLANAR = 0, 1, 2, 3, 4
-IMPL_CUDA = 5
+IMPL_CUDA, IMPL_CUDA_PLANAR = 5, 6
 IMPL_IDS = {'direct': IMPL_DIRECT, 'cached': IMPL_CACHED, 'ring': IMPL_RING,
-            'pallas': IMPL_PALLAS, 'planar': IMPL_PLANAR, 'cuda': IMPL_CUDA}
+            'pallas': IMPL_PALLAS, 'planar': IMPL_PLANAR, 'cuda': IMPL_CUDA,
+            'cuda_planar': IMPL_CUDA_PLANAR}
 IMPL_NAMES = {v: k for k, v in IMPL_IDS.items()}
 
 TAIL_MIN_LANE_SYMBOLS = 256   # tail packing only for lanes this long (tiny
@@ -362,27 +364,42 @@ def stream_prec(data: bytes) -> int:
 # ---------------------------------------------------------------------------
 
 class LatentCodec:
-    """Entropy codec for one (pc_config, num_centers) context model. Routes
-    on the container's impl id; the port implements only impl 'cuda' (id 5),
-    the K=3 wavefront codec of coding/cuda_codec.py."""
+    """Entropy codec for one (pc_config, num_centers) context model. Encodes
+    kernel_size 3 with the K=3 wavefront codec (coding/cuda_codec.py, impl
+    'cuda', id 5) and any other kernel_size with the planar codec
+    (coding/planar_codec.py, impl 'cuda_planar', id 6); decode routes each
+    stream on its container's impl id."""
 
     def __init__(self, pc, pc_config, device='cuda'):
-        if pc_config.kernel_size != 3:
-            raise NotImplementedError('the planar (K != 3) codec is not ported yet')
-        from .cuda_codec import CudaCoder
-        self.coder = CudaCoder(pc, pc_config, device=device)
+        from .. import resolve_device
+        self.pc, self.pc_config = pc, pc_config
+        self.device = resolve_device(device)
+        self.impl_id = IMPL_CUDA if pc_config.kernel_size == 3 else IMPL_CUDA_PLANAR
+        self._coders = {}
 
-    def _check_impl(self, bitstreams):
-        for bs in bitstreams:
-            impl_id = stream_impl_id(bs)
-            if impl_id != IMPL_CUDA:
+    def coder(self, impl_id: int):
+        """The coder of a port impl id (5 or 6); raises for any other."""
+        if impl_id not in self._coders:
+            if impl_id == IMPL_CUDA:
+                from .cuda_codec import CudaCoder
+                self._coders[impl_id] = CudaCoder(self.pc, self.pc_config, self.device)
+            elif impl_id == IMPL_CUDA_PLANAR:
+                from .planar_codec import PlanarCoder
+                self._coders[impl_id] = PlanarCoder(self.pc, self.pc_config, self.device)
+            else:
                 raise ValueError(
                     f'stream impl id {impl_id} ({IMPL_NAMES.get(impl_id, "?")}) '
-                    'is not decodable by the port (impl cuda, id 5)')
+                    'is not decodable by the port (impl cuda, id 5, or '
+                    'cuda_planar, id 6)')
+        return self._coders[impl_id]
 
     def encode_batch(self, symbols, centers) -> Tuple[EncodeResult, ...]:
-        return self.coder.encode_batch(symbols, centers)
+        return self.coder(self.impl_id).encode_batch(symbols, centers)
 
     def decode_batch(self, bitstreams, centers, verify: bool = True) -> torch.Tensor:
-        self._check_impl(bitstreams)
-        return self.coder.decode_batch(bitstreams, centers, verify=verify)
+        """-> (B, C, H, W) int32 symbols, through the coder of the streams'
+        impl id (one id per batch)."""
+        ids = {stream_impl_id(bs) for bs in bitstreams}
+        if len(ids) != 1:
+            raise ValueError(f'mixed impl ids {sorted(ids)} in one decode batch')
+        return self.coder(ids.pop()).decode_batch(bitstreams, centers, verify=verify)

@@ -12,7 +12,7 @@ per image cross to the host.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,13 +36,34 @@ def _taps(weight: torch.Tensor, first: bool) -> torch.Tensor:
     return torch.stack(cols)
 
 
+def pad_constants(pc: pc_lib.ProbClassifier, pad: float):
+    """(k1, k2, k3) float64 (kf,) on the host: the activation of layers 1-3
+    over an all-pad volume (ring.py:_pad_constants). A VALID conv of a
+    constant volume is constant, so each constant is one channel vector: the
+    sum of the layer's masked taps (window order) applied to the constant
+    below. Computed in float64 and rounded once by the caller, so encoder
+    and decoder always agree on them. Any kernel_size."""
+    net = pc.net
+    K = net.kernel_size
+    kd = pc_lib.filter_depth(K)
+    w64, b64 = [], []
+    for i, conv in enumerate((net.conv0, net.res1.conv1, net.res1.conv2)):
+        m = pc_lib.spatial_mask(K, first=(i == 0))
+        w = conv.weight.detach().float()
+        cols = [w[:, :, dz, dy, dx].t() for dz in range(kd) for dy in range(K)
+                for dx in range(K) if dz < kd - 1 or m[dy, dx] > 0]
+        w64.append(torch.stack(cols).double().cpu().sum(0))
+        b64.append(conv.bias.detach().double().cpu())
+    k1 = torch.relu(torch.full((1,), pad, dtype=torch.float64) @ w64[0] + b64[0])
+    k2 = torch.relu(k1 @ w64[1] + b64[1])
+    k3 = k2 @ w64[2] + b64[2] + k1
+    return k1, k2, k3
+
+
 def fold_weights(pc: pc_lib.ProbClassifier, centers: torch.Tensor
                  ) -> ck.FoldedWeights:
     """Masked-tap weight folding (cached.py:_layer_weights) plus the all-pad
-    activation constants of each layer (ring.py:_pad_constants): a VALID
-    conv of a constant volume is constant, so each constant is one channel
-    vector. The constants are computed in float64 on the host and rounded
-    once, so encoder and decoder always agree on them."""
+    activation constants of each layer (pad_constants)."""
     net = pc.net
     dev = centers.device
     convs = (net.conv0, net.res1.conv1, net.res1.conv2, net.conv_out)
@@ -50,16 +71,95 @@ def fold_weights(pc: pc_lib.ProbClassifier, centers: torch.Tensor
           for i, c in enumerate(convs)]
     bs = [c.bias.detach().float().contiguous() for c in convs]
     pad = pc_lib.auto_pad_value(pc.config, centers)
-    w64 = [w.double().cpu().sum(0) for w in ws[:3]]
-    b64 = [b.double().cpu() for b in bs[:3]]
-    k1 = torch.relu(torch.full((1,), pad, dtype=torch.float64) @ w64[0] + b64[0])
-    k2 = torch.relu(k1 @ w64[1] + b64[1])
-    k3 = k2 @ w64[2] + b64[2] + k1
+    k1, k2, k3 = pad_constants(pc, pad)
     return ck.FoldedWeights(
         ws[0], bs[0], ws[1], bs[1], ws[2], bs[2], ws[3], bs[3],
         k1.float().to(dev), k2.float().to(dev), k3.float().to(dev),
         torch.full((1,), pad, dtype=torch.float32, device=dev),
         centers.detach().float().contiguous())
+
+
+def theoretical_bits(fsel: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """(B,) float64 sum of -log2(freq / SCALE) over the active entries of
+    (B, rows, CQ) tables; active (rows, CQ) bool on the same device."""
+    bits = -torch.log2(torch.clamp(fsel.double(), min=1.0) / rans.SCALE)
+    return torch.where(active, bits, 0.0).sum((1, 2))
+
+
+def checksums(syms_flat: torch.Tensor) -> torch.Tensor:
+    """(B,) int64 container checksums of (B, n) symbols, on their device."""
+    w = torch.from_numpy(codec_lib.crc_weights(syms_flat.shape[1]).astype(np.int64))
+    return codec_lib.symbol_crc_device(syms_flat, w.to(syms_flat.device))
+
+
+def serialize_batch(latent_shape, words, n_words, states, kwarm, theo, crcs,
+                    tail: bool, impl_id: int, host_syms=None):
+    """Device outputs of a reverse encode -> one EncodeResult per image
+    (container v11, precision 0)."""
+    theo = theo.cpu().numpy()
+    crcs = crcs.cpu().numpy()
+    n_words = n_words.cpu().numpy()
+    wmax = max(1, int(n_words.max()))
+    host_words = words[:, :wmax].cpu().numpy()
+    states = states.cpu().numpy().view(np.uint32)
+    kwarm = kwarm.cpu().numpy()
+    results = []
+    for i in range(len(n_words)):
+        stream = host_words[i, :n_words[i]][::-1].astype(np.uint32)
+        bitstream = codec_lib.serialize_stream(
+            latent_shape, stream, states[i], int(crcs[i]), impl_id=impl_id,
+            prec=0, k=kwarm[i] if tail else None)
+        results.append(codec_lib.EncodeResult(
+            bitstream=bitstream, num_bits=len(bitstream) * 8,
+            theoretical_bits=float(theo[i]),
+            symbols=None if host_syms is None else host_syms[i]))
+    return tuple(results)
+
+
+class ParsedBatch(NamedTuple):
+    latent_shape: Tuple[int, int, int]
+    words: np.ndarray     # (B, cap) int32 stream words in decode order
+    states: np.ndarray    # (B, R) int32 holding the uint32 entry states
+    thresh: np.ndarray    # (B, R) int32 pull thresholds (huge if not tail-packed)
+    crcs: Tuple[int, ...]
+
+
+def parse_batch(bitstreams: Sequence[bytes], cap_of, totals_of) -> ParsedBatch:
+    """Parse container v11 streams of one latent shape: cap_of(shape) is the
+    word capacity, totals_of(shape) the (R,) active symbols per lane, so
+    a tail-packed lane has thresh = total - k (no pull in its last k)."""
+    parsed = [codec_lib.deserialize_stream(bs) for bs in bitstreams]
+    if {codec_lib.stream_prec(bs) for bs in bitstreams} != {0}:
+        raise ValueError('only container precision 0 (f32) is ported')
+    latent_shape = parsed[0][0]
+    if any(p[0] != latent_shape for p in parsed):
+        raise ValueError('mixed latent shapes in one decode batch')
+    b, cap, totals = len(parsed), cap_of(latent_shape), totals_of(latent_shape)
+    packed = np.zeros((b, cap), np.int32)
+    states = np.zeros((b, ck.R), np.uint32)
+    thresh = np.full((b, ck.R), _NO_THRESH, np.int32)
+    for i, (_, words, st, _crc, k) in enumerate(parsed):
+        if len(st) != ck.R:
+            raise ValueError(f'stream has {len(st)} lanes, expected {ck.R}')
+        if len(words) > cap:
+            raise ValueError(f'stream length {len(words)} exceeds the word cap {cap}')
+        packed[i, :len(words)] = words
+        states[i] = st
+        if k is not None:
+            thresh[i] = totals - k.astype(np.int32)
+    return ParsedBatch(latent_shape, packed, states.view(np.int32), thresh,
+                       tuple(p[3] for p in parsed))
+
+
+def verify_crcs(syms_flat: torch.Tensor, expected: Sequence[int]) -> None:
+    """Raise unless every image's device-computed checksum matches its
+    container's."""
+    crcs = checksums(syms_flat).cpu().numpy()
+    for i, want in enumerate(expected):
+        if int(crcs[i]) != want:
+            raise ValueError(
+                f'decode CRC mismatch for image {i}: corrupt stream, or '
+                'decoded by a different implementation than encoded it')
 
 
 class CudaCoder:
@@ -77,17 +177,6 @@ class CudaCoder:
         centers = torch.as_tensor(centers, dtype=torch.float32).to(self.device)
         sched = ck.build_schedule(latent_shape)
         return sched, fold_weights(self.pc, centers)
-
-    def theoretical_bits(self, fsel: torch.Tensor, sched: ck.Schedule) -> torch.Tensor:
-        """(B,) float64 sum of -log2(freq / SCALE) over the active lanes."""
-        tabs = ck.device_tables(sched.latent_shape, str(self.device))
-        act = tabs.idx_cm < int(np.prod(sched.latent_shape))
-        bits = -torch.log2(torch.clamp(fsel.double(), min=1.0) / rans.SCALE)
-        return torch.where(act, bits, 0.0).sum((1, 2))
-
-    def checksums(self, syms_flat: torch.Tensor) -> torch.Tensor:
-        w = torch.from_numpy(codec_lib.crc_weights(syms_flat.shape[1]).astype(np.int64))
-        return codec_lib.symbol_crc_device(syms_flat, w.to(syms_flat.device))
 
     # -- encode ---------------------------------------------------------------
 
@@ -111,25 +200,13 @@ class CudaCoder:
             tail = False
             words, n_words, states, kwarm = ck.rans_reverse(
                 fsel, ssel, latent_shape, rans.RANS_L)
-        theo = self.theoretical_bits(fsel, sched).cpu().numpy()
-        crcs = self.checksums(syms_flat).cpu().numpy()
-        n_words = n_words.cpu().numpy()
-        wmax = max(1, int(n_words.max()))
-        host_words = words[:, :wmax].cpu().numpy()
-        states = states.cpu().numpy().view(np.uint32)
-        kwarm = kwarm.cpu().numpy()
-        host_syms = syms.cpu().numpy() if isinstance(symbols, np.ndarray) else None
-        results = []
-        for i in range(b):
-            stream = host_words[i, :n_words[i]][::-1].astype(np.uint32)
-            bitstream = codec_lib.serialize_stream(
-                latent_shape, stream, states[i], int(crcs[i]),
-                impl_id=codec_lib.IMPL_CUDA, prec=0, k=kwarm[i] if tail else None)
-            results.append(codec_lib.EncodeResult(
-                bitstream=bitstream, num_bits=len(bitstream) * 8,
-                theoretical_bits=float(theo[i]),
-                symbols=None if host_syms is None else host_syms[i]))
-        return tuple(results)
+        tabs = ck.device_tables(latent_shape, str(self.device))
+        active = tabs.idx_cm < int(np.prod(latent_shape))
+        return serialize_batch(
+            latent_shape, words, n_words, states, kwarm,
+            theoretical_bits(fsel, active), checksums(syms_flat), tail,
+            codec_lib.IMPL_CUDA,
+            syms.cpu().numpy() if isinstance(symbols, np.ndarray) else None)
 
     # -- decode ---------------------------------------------------------------
 
@@ -138,39 +215,15 @@ class CudaCoder:
         """-> (B, C, H, W) int32 symbols on the coder's device. With verify,
         raises unless every image's device-computed checksum matches its
         container's."""
-        parsed = [codec_lib.deserialize_stream(bs) for bs in bitstreams]
-        if {codec_lib.stream_prec(bs) for bs in bitstreams} != {0}:
-            raise ValueError('only container precision 0 (f32) is ported')
-        latent_shape = parsed[0][0]
-        if any(p[0] != latent_shape for p in parsed):
-            raise ValueError('mixed latent shapes in one decode batch')
-        b = len(parsed)
-        sched, weights = self._prepare(latent_shape, centers)
-        cap = sched.stream_cap
-        totals = ck.lane_totals(sched)
-        packed = np.zeros((b, cap), np.int32)
-        states = np.zeros((b, ck.R), np.uint32)
-        thresh = np.full((b, ck.R), _NO_THRESH, np.int32)
-        for i, (_, words, st, _crc, k) in enumerate(parsed):
-            if len(st) != ck.R:
-                raise ValueError(f'stream has {len(st)} lanes, expected {ck.R}')
-            if len(words) > cap:
-                raise ValueError(f'stream length {len(words)} exceeds the word cap {cap}')
-            packed[i, :len(words)] = words
-            states[i] = st
-            if k is not None:        # tail-packed: no pull in the lane's last k
-                thresh[i] = totals - k.astype(np.int32)
+        pb = parse_batch(bitstreams, lambda s: ck.build_schedule(s).stream_cap,
+                         lambda s: ck.lane_totals(ck.build_schedule(s)))
+        sched, weights = self._prepare(pb.latent_shape, centers)
         dev = self.device
         syms = ck.wavefront_forward(
-            ck.MODE_DECODE, weights, latent_shape,
-            streams=torch.from_numpy(packed).to(dev),
-            init_states=torch.from_numpy(states.view(np.int32)).to(dev),
-            thresh=torch.from_numpy(thresh).to(dev))
+            ck.MODE_DECODE, weights, pb.latent_shape,
+            streams=torch.from_numpy(pb.words).to(dev),
+            init_states=torch.from_numpy(pb.states).to(dev),
+            thresh=torch.from_numpy(pb.thresh).to(dev))
         if verify:
-            crcs = self.checksums(syms).cpu().numpy()
-            for i in range(b):
-                if int(crcs[i]) != parsed[i][3]:
-                    raise ValueError(
-                        f'decode CRC mismatch for image {i}: corrupt stream, or '
-                        'decoded by a different implementation than encoded it')
-        return syms.reshape((b,) + tuple(latent_shape))
+            verify_crcs(syms, pb.crcs)
+        return syms.reshape((len(pb.crcs),) + tuple(pb.latent_shape))

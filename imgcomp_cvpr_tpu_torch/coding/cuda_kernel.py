@@ -497,34 +497,69 @@ def wavefront_forward(mode: int, weights: FoldedWeights,
 # Kernel 3: reverse interleaved rANS encoder
 # ---------------------------------------------------------------------------
 
-def rans_reverse_plain(fsel: torch.Tensor, ssel: torch.Tensor,
-                       latent_shape: Tuple[int, int, int], x0: int = rans.RANS_L):
-    """Plain version of kernel 3: walk steps T-1..0 and sub-iterations
-    S-1..0 over the chunk-major tables. Returns (words (B, cap) int32 in
-    emission order, n_words (B,) int32, states (B, R) int32 holding the
-    uint32 bits, k (B, R) int32 warmup counts); image b's decode-order stream is
-    words[b, :n_words[b]] reversed."""
-    sched = build_schedule(latent_shape)
+def reverse_plain(fsel: torch.Tensor, ssel: torch.Tensor, active: np.ndarray,
+                  cap: int, x0: int = rans.RANS_L):
+    """Reverse interleaved rANS over any (rows, CQ) activity table: walk rows
+    T-1..0 and their R-lane chunks S-1..0 of the (B, T, CQ) tables. Returns
+    (words (B, cap) int32 in emission order, n_words (B,) int32, states
+    (B, R) int32 holding the uint32 bits, k (B, R) int32 warmup counts);
+    image b's decode-order stream is words[b, :n_words[b]] reversed."""
     dev = fsel.device
-    n = int(np.prod(sched.latent_shape))
-    B = fsel.shape[0]
-    act_np = sched.idx_cm < n
-    act = torch.from_numpy(act_np).to(dev)
-    words = torch.zeros(B, sched.stream_cap, dtype=torch.long, device=dev)
+    B, T, CQ = fsel.shape
+    act = torch.from_numpy(active).to(dev)
+    words = torch.zeros(B, cap, dtype=torch.long, device=dev)
     states = torch.full((B, R), x0, dtype=torch.long, device=dev)
     gw = torch.zeros(B, dtype=torch.long, device=dev)
     kw = torch.zeros(B, R, dtype=torch.long, device=dev)
     f_all, s_all = fsel.long(), ssel.long()
-    for t in range(sched.T - 1, -1, -1):
-        for si in range(sched.S - 1, -1, -1):
+    for t in range(T - 1, -1, -1):
+        for si in range(CQ // R - 1, -1, -1):
             lanes = slice(si * R, (si + 1) * R)
-            if not act_np[t, lanes].any():
+            if not active[t, lanes].any():
                 continue
             a = act[t, lanes]
             states, gw, kw = rans.encode_reverse_step_interleaved(
                 states, gw, kw, f_all[:, t, lanes], s_all[:, t, lanes],
                 a[None].expand(B, R), words, x0 < rans.RANS_L)
     return words.int(), gw.int(), to_int32_bits(states), kw.int()
+
+
+def reverse_launch(fsel: torch.Tensor, ssel: torch.Tensor, idx_cm: torch.Tensor,
+                   n: int, cap: int, x0: int):
+    """Launch csrc/rans_reverse.cu on (B, T, CQ) int32 CUDA tables; a lane
+    (t, c) is active where idx_cm[t, c] < n. Same outputs as reverse_plain.
+    Counts no launch: each caller counts its own."""
+    if not 1 <= x0 <= rans.RANS_L:
+        raise ValueError(f'x0 must be in [1, RANS_L], got {x0}')
+    dev = fsel.device
+    B, T, CQ = fsel.shape
+    i32 = torch.int32
+    _check_cuda('fsel', fsel, i32, (B, T, CQ), dev)
+    _check_cuda('ssel', ssel, i32, (B, T, CQ), dev)
+    _check_cuda('idx_cm', idx_cm, i32, (T, CQ), dev)
+    words = torch.empty(B, cap, dtype=i32, device=dev)
+    n_words = torch.empty(B, dtype=i32, device=dev)
+    states = torch.empty(B, R, dtype=i32, device=dev)
+    kw = torch.empty(B, R, dtype=i32, device=dev)
+    fn = build.load('rans_reverse').rans_reverse
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_uint] + [ctypes.c_void_p] * 8
+    fn.restype = ctypes.c_int
+    p = build.ptr
+    with torch.cuda.device(dev):
+        err = fn(B, T, CQ, n, cap, x0, p(idx_cm), p(fsel), p(ssel), p(words),
+                 p(n_words), p(states), p(kw), build.stream_ptr(dev))
+    build.check(err, 'rans_reverse')
+    return words, n_words, states, kw
+
+
+def rans_reverse_plain(fsel: torch.Tensor, ssel: torch.Tensor,
+                       latent_shape: Tuple[int, int, int], x0: int = rans.RANS_L):
+    """Plain version of kernel 3 over the wavefront's chunk-major (B, T, CQ)
+    tables; outputs as reverse_plain."""
+    sched = build_schedule(latent_shape)
+    n = int(np.prod(sched.latent_shape))
+    return reverse_plain(fsel, ssel, sched.idx_cm < n, sched.stream_cap, x0)
 
 
 def rans_reverse(fsel: torch.Tensor, ssel: torch.Tensor,
@@ -537,26 +572,8 @@ def rans_reverse(fsel: torch.Tensor, ssel: torch.Tensor,
     if fsel.device.type != 'cuda':
         raise ValueError(f'rans_reverse: unsupported device {fsel.device}')
     sched = build_schedule(latent_shape)
-    dev = fsel.device
-    tabs = device_tables(sched.latent_shape, str(dev))
-    B = fsel.shape[0]
-    i32 = torch.int32
-    _check_cuda('fsel', fsel, i32, (B, sched.T, sched.CQ), dev)
-    _check_cuda('ssel', ssel, i32, (B, sched.T, sched.CQ), dev)
-    words = torch.empty(B, sched.stream_cap, dtype=i32, device=dev)
-    n_words = torch.empty(B, dtype=i32, device=dev)
-    states = torch.empty(B, R, dtype=i32, device=dev)
-    kw = torch.empty(B, R, dtype=i32, device=dev)
-    fn = build.load('rans_reverse').rans_reverse
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_uint] + [ctypes.c_void_p] * 8
-    fn.restype = ctypes.c_int
-    n = int(np.prod(sched.latent_shape))
-    p = build.ptr
-    with torch.cuda.device(dev):
-        err = fn(B, sched.T, sched.CQ, n, sched.stream_cap, x0, p(tabs.idx_cm),
-                 p(fsel), p(ssel), p(words), p(n_words), p(states), p(kw),
-                 build.stream_ptr(dev))
+    tabs = device_tables(sched.latent_shape, str(fsel.device))
+    out = reverse_launch(fsel, ssel, tabs.idx_cm, int(np.prod(sched.latent_shape)),
+                         sched.stream_cap, x0)
     build.LAUNCHES['rans_reverse'] += 1
-    build.check(err, 'rans_reverse')
-    return words, n_words, states, kw
+    return out

@@ -1,0 +1,204 @@
+"""The planar (per-depth-plane) codec on the card, for any
+kernel_size (counterpart of imgcomp_cvpr_tpu/coding/planar_codec.py::
+PlanarCoder at bsub = 1, container precision 0).
+
+Per plane d = 0..C-1: the bias rows of the four layers (the lower kernel
+slices over the kd-1 known planes below d, plus the layer bias), then kernel
+5 over the plane. Planes below 0 are the all-pad constants (pad value for
+q, k1..k3 for the hidden layers). Encode runs kernel 5 teacher-forced and
+then kernel 6 over all (plane, step) rows (x0 = 1 tail packing when the
+longest lane reaches TAIL_MIN_LANE_SYMBOLS; a lane whose warmup exceeds
+K_CAP sends the batch back through kernel 6 with x0 = RANS_L). Decode runs
+kernel 5 plane by plane with the rANS state and read pointer carried across
+planes and the plane's own pull threshold thresh - d * plane_tot, then
+checks the CRC on the device.
+
+Bias rows are F.conv2d (TF32 off) run one image at a time: every float that
+feeds a CDF is then a fixed function of one image's data, whatever the
+batch, so a stream decodes alone exactly as it was encoded in a batch.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import resolve_device
+from ..models import probclass as pc_lib
+from . import codec as codec_lib
+from . import cuda_codec
+from . import planar
+from . import planar_kernel as pk
+from . import rans
+
+
+class PlanarFold(NamedTuple):
+    top: pk.PlaneWeights                  # kernel 5's top-slice taps
+    low: Tuple[torch.Tensor, ...]         # per layer (cout, (kd-1)*cin, K, K)
+    bias: Tuple[torch.Tensor, ...]        # per layer (cout,)
+    consts: Tuple[torch.Tensor, ...]      # k1..k3, each (kf,) f32
+    pad: float
+
+
+def fold_planar(pc: pc_lib.ProbClassifier, centers: torch.Tensor) -> PlanarFold:
+    """Top-slice taps -> kernel weights; lower slices w[:kd-1] -> one conv
+    weight per layer over the kd-1 planes stacked on channels, oldest first
+    (planar_codec.py:234-258); the all-pad constants in float64."""
+    net = pc.net
+    K = net.kernel_size
+    kd = pc_lib.filter_depth(K)
+    dev = centers.device
+    tops, lows, bs = [], [], []
+    for i, conv in enumerate((net.conv0, net.res1.conv1, net.res1.conv2, net.conv_out)):
+        w = conv.weight.detach().float()                 # (cout, cin, kd, K, K)
+        cout, cin = w.shape[:2]
+        tops.append(torch.stack([w[:, :, kd - 1, dy, dx].t()
+                                 for dy, dx in planar.unmasked_taps(K, i == 0)]).contiguous())
+        lows.append(w[:, :, :kd - 1].permute(0, 2, 1, 3, 4)
+                    .reshape(cout, (kd - 1) * cin, K, K).contiguous())
+        bs.append(conv.bias.detach().float().contiguous())
+    pad = pc_lib.auto_pad_value(pc.config, centers)
+    consts = tuple(k.float().to(dev) for k in cuda_codec.pad_constants(pc, pad))
+    top = pk.PlaneWeights(*tops, torch.full((1,), pad, dtype=torch.float32, device=dev),
+                          centers.detach().float().contiguous())
+    return PlanarFold(top, tuple(lows), tuple(bs), consts, pad)
+
+
+class PlanarCoder:
+    """Entropy codec for one context model of any kernel_size, plane by
+    plane on the card (kernels 5 and 6); on the CPU the kernels' plain
+    versions run."""
+
+    def __init__(self, pc: pc_lib.ProbClassifier, pc_config, device='cuda'):
+        self.device = resolve_device(device)
+        self.pc = pc
+        self.K = pc_config.kernel_size
+        self.L = pc.num_centers
+
+    def _prepare(self, latent_shape, centers):
+        centers = torch.as_tensor(centers, dtype=torch.float32).to(self.device)
+        return (planar.build_planar_schedule(tuple(latent_shape), self.K),
+                fold_planar(self.pc, centers))
+
+    def lane_totals(self, latent_shape) -> np.ndarray:
+        """(R,) active symbols per rANS lane over the whole volume."""
+        sched = planar.build_planar_schedule(tuple(latent_shape), self.K)
+        return (latent_shape[0] * planar.plane_totals(sched)).astype(np.int32)
+
+    # -- the plane loop -------------------------------------------------------
+
+    def _history(self, fold: PlanarFold, sched, b: int):
+        """Per level 0..3, the kd-1 planes below plane 0 (all-pad constants),
+        each (b, ch, Hl, Wl) f32, oldest first."""
+        kd = pc_lib.filter_depth(self.K)
+        dev = fold.top.w1.device
+        hist = [[torch.full((b, 1) + sched.grids[0], fold.pad, device=dev)]]
+        for l in range(1, 4):
+            k = fold.consts[l - 1]
+            hist.append([k[None, :, None, None].expand(
+                (b, k.shape[0]) + sched.grids[l]).contiguous()])
+        return [h * (kd - 1) for h in hist]
+
+    @staticmethod
+    def bias_rows(fold: PlanarFold, hist) -> Tuple[torch.Tensor, ...]:
+        """The plane's 4 bias rows (b, Hl, Wl, cout): sum_j conv2d(act_{l-1}
+        [d-kd+1+j], w_l[j]) + b_l, one image per conv call."""
+        rows = []
+        for l in range(4):
+            x = torch.cat(hist[l], 1)
+            y = torch.cat([F.conv2d(x[i:i + 1], fold.low[l], fold.bias[l])
+                           for i in range(x.shape[0])])
+            rows.append(y.permute(0, 2, 3, 1).contiguous())
+        return tuple(rows)
+
+    @staticmethod
+    def _push(hist, out: pk.PlaneOut) -> None:
+        new = [out.q[:, None]] + [a.permute(0, 3, 1, 2).contiguous() for a in out.acts]
+        for h, n in zip(hist, new):
+            h.pop(0)
+            h.append(n)
+
+    # -- encode ---------------------------------------------------------------
+
+    def encode_tables(self, syms: torch.Tensor, fold: PlanarFold):
+        """(B, C, H, W) int32 symbols -> (fsel, ssel) (B, C*T2, R) int32 in
+        (plane, step) coding order, through kernel 5 in encode mode."""
+        b, C = syms.shape[:2]
+        latent_shape = tuple(int(v) for v in syms.shape[1:])
+        sched = planar.build_planar_schedule(latent_shape, self.K)
+        hist = self._history(fold, sched, b)
+        fsel = torch.empty(b, C, sched.T2, planar.R, dtype=torch.int32, device=syms.device)
+        ssel = torch.empty_like(fsel)
+        for d in range(C):
+            out = pk.plane_forward(pk.MODE_ENCODE, fold.top, latent_shape, self.K,
+                                   self.bias_rows(fold, hist),
+                                   true_plane=syms[:, d].contiguous())
+            fsel[:, d], ssel[:, d] = out.fsel, out.ssel
+            self._push(hist, out)
+        return fsel.reshape(b, -1, planar.R), ssel.reshape(b, -1, planar.R)
+
+    def encode_batch(self, symbols, centers) -> Tuple[codec_lib.EncodeResult, ...]:
+        """symbols: (B, C, H, W) int, a tensor (any device) or numpy."""
+        syms = torch.as_tensor(symbols).to(self.device)
+        latent_shape = tuple(int(v) for v in syms.shape[1:])
+        sched, fold = self._prepare(latent_shape, centers)
+        syms = syms.int().contiguous()
+        if int(syms.min()) < 0 or int(syms.max()) >= self.L:
+            raise ValueError(f'symbols must lie in [0, {self.L})')
+        fsel, ssel = self.encode_tables(syms, fold)
+        tail = int(self.lane_totals(latent_shape).max()) >= codec_lib.TAIL_MIN_LANE_SYMBOLS
+        x0 = 1 if tail else rans.RANS_L
+        words, n_words, states, kwarm = pk.plane_reverse(fsel, ssel, latent_shape,
+                                                         self.K, x0)
+        if tail and int(kwarm.max()) > codec_lib.K_CAP:
+            # Pathological: a lane needs > K_CAP warmup symbols to reach
+            # RANS_L. Re-encode the batch with the classic seed.
+            tail = False
+            words, n_words, states, kwarm = pk.plane_reverse(
+                fsel, ssel, latent_shape, self.K, rans.RANS_L)
+        active = torch.from_numpy(pk._full_active(sched)).to(self.device)
+        return cuda_codec.serialize_batch(
+            latent_shape, words, n_words, states, kwarm,
+            cuda_codec.theoretical_bits(fsel, active),
+            cuda_codec.checksums(syms.reshape(syms.shape[0], -1)), tail,
+            codec_lib.IMPL_CUDA_PLANAR,
+            syms.cpu().numpy() if isinstance(symbols, np.ndarray) else None)
+
+    # -- decode ---------------------------------------------------------------
+
+    def decode_batch(self, bitstreams: Sequence[bytes], centers,
+                     verify: bool = True) -> torch.Tensor:
+        """-> (B, C, H, W) int32 symbols on the coder's device. With verify,
+        raises unless every image's device-computed checksum matches its
+        container's."""
+        pb = cuda_codec.parse_batch(
+            bitstreams,
+            lambda s: planar.build_planar_schedule(tuple(s), self.K).stream_cap,
+            self.lane_totals)
+        latent_shape = tuple(pb.latent_shape)
+        C, H, W = latent_shape
+        sched, fold = self._prepare(latent_shape, centers)
+        dev = self.device
+        b = len(pb.crcs)
+        streams = torch.from_numpy(pb.words).to(dev)
+        states = torch.from_numpy(pb.states).to(dev)
+        gptr = torch.zeros(b, dtype=torch.int32, device=dev)
+        thresh = torch.from_numpy(pb.thresh).to(dev)
+        plane_tot = torch.from_numpy(planar.plane_totals(sched)).to(dev)
+        syms = torch.empty(b, C, H, W, dtype=torch.int32, device=dev)
+        hist = self._history(fold, sched, b)
+        for d in range(C):
+            # The kernel counts a lane's symbols within one plane, so plane
+            # d's threshold is the global one minus the d planes before it.
+            out = pk.plane_forward(pk.MODE_DECODE, fold.top, latent_shape, self.K,
+                                   self.bias_rows(fold, hist), streams=streams,
+                                   states=states, gptr=gptr,
+                                   thresh=(thresh - d * plane_tot).int().contiguous())
+            syms[:, d], states, gptr = out.syms, out.states, out.gptr
+            self._push(hist, out)
+        if verify:
+            cuda_codec.verify_crcs(syms.reshape(b, -1), pb.crcs)
+        return syms

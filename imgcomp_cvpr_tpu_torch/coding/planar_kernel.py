@@ -1,0 +1,338 @@
+"""Planar (K != 3) codec kernels for the H100: kernel 5 (one depth plane's 2D
+wavefront, encode and decode) and kernel 6 (reverse interleaved rANS over the
+(plane, step) rows), with their plain PyTorch versions.
+
+Counterpart of imgcomp_cvpr_tpu/coding/planar_kernel.py. Kernel 5
+(csrc/plane_forward.cu, one block per image) codes ONE plane: at step t it
+computes the level 1..4 cells of that step (coding/planar.py) from the
+top-slice taps of the current plane plus the plane's bias rows (the lower
+kernel slices over the known planes, computed by PlanarCoder), then the
+step's band of at most R = 32 symbols as one rANS chunk. Mode 1 (encode) is
+teacher-forced and writes (freq, start) per lane; mode 0 (decode) runs the
+sequential 32-lane rANS decode with the per-plane tail-packing threshold.
+Both modes compute logits and CDFs with the same code (csrc/cdf.cuh).
+
+Layer math (ResShallow): conv0 (first mask) -> res conv1 (relu) -> res conv2
++ the same-step level-1 skip (no relu) -> conv_out (relu'd logits); each
+layer adds its bias row. Every sum is accumulated over (tap, input channel)
+with separately rounded multiplies and adds; the plain versions repeat
+exactly those roundings.
+
+Kernel 6 is csrc/rans_reverse.cu (kernel 3) driven over the planar
+(C * T2, R) activity table with S = 1 chunk per row; it has its own launch
+counter and plain version here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.kernels import build
+from . import cuda_kernel as ck
+from . import planar
+from . import rans
+
+R = planar.R
+MAX_TAPS = 32     # top-slice taps per layer the kernel takes (K <= 7)
+MAX_L = ck.MAX_L
+MODE_DECODE, MODE_ENCODE = ck.MODE_DECODE, ck.MODE_ENCODE
+
+
+# ---------------------------------------------------------------------------
+# Host tables of the plain version: the cells of every step, per level
+# ---------------------------------------------------------------------------
+
+class PlaneLayer(NamedTuple):
+    ptr: np.ndarray     # (T2+1,): cells of step t are cells[ptr[t]:ptr[t+1]]
+    cells: np.ndarray   # (N,) int64 flat index in the level's grid
+    taps: torch.Tensor  # (N, ntaps) int64 source in the level below (CPU)
+    skip: Optional[np.ndarray]  # (N,) level-1 flat index (layer 3 only)
+
+
+@functools.lru_cache(maxsize=8)
+def plane_layers(latent_shape: Tuple[int, int, int], K: int) -> Tuple[PlaneLayer, ...]:
+    sched = planar.build_planar_schedule(latent_shape, K)
+    BH, CTR, grids = sched.BH, sched.CTR, sched.grids
+    out = []
+    for l in range(1, planar.NUM_LAYERS + 1):
+        Hl, Wl = grids[l]
+        Ws = grids[l - 1][1]
+        h, w = np.meshgrid(np.arange(Hl), np.arange(Wl), indexing='ij')
+        h, w = h.reshape(-1), w.reshape(-1)
+        t = BH * h + w + CTR * l
+        order = np.argsort(t, kind='stable')
+        h, w, t = h[order], w[order], t[order]
+        assert t.max() < sched.T2
+        ptr = np.searchsorted(t, np.arange(sched.T2 + 1))
+        taps = np.stack([(h + dy) * Ws + (w + dx) for dy, dx in sched.taps[l - 1]], 1)
+        skip = (h + K - 1) * grids[1][1] + (w + K - 1) if l == 3 else None
+        out.append(PlaneLayer(ptr=ptr, cells=h * Wl + w,
+                              taps=torch.from_numpy(taps.astype(np.int64)), skip=skip))
+    return tuple(out)
+
+
+class PlaneWeights(NamedTuple):
+    """Top-slice weights of the four layers, each (ntaps, cin, cout) over
+    the schedule's unmasked taps in (dy, dx) order; the pad value (1,);
+    the centers (L,). All float32, on one device."""
+    w1: torch.Tensor
+    w2: torch.Tensor
+    w3: torch.Tensor
+    w4: torch.Tensor
+    pad: torch.Tensor
+    centers: torch.Tensor
+
+    def packed(self) -> torch.Tensor:
+        return torch.cat([a.reshape(-1).float() for a in self]).contiguous()
+
+
+class PlaneOut(NamedTuple):
+    acts: Tuple[torch.Tensor, ...]       # levels 1..3, each (B, Hl, Wl, kf)
+    q: torch.Tensor                      # (B, H0, W0) padded q plane
+    fsel: Optional[torch.Tensor] = None  # encode: (B, T2, R) int32
+    ssel: Optional[torch.Tensor] = None
+    syms: Optional[torch.Tensor] = None  # decode: (B, H, W) int32
+    states: Optional[torch.Tensor] = None  # decode: (B, R) int32 (uint32 bits)
+    gptr: Optional[torch.Tensor] = None    # decode: (B,) int32 read pointer
+
+
+def _q_index(sched: planar.PlanarSchedule) -> np.ndarray:
+    """(H*W,) flat level-0 index of every latent cell."""
+    _, H, W = sched.latent_shape
+    reach = planar.geometry(sched.K)[1]
+    W0 = sched.grids[0][1]
+    h, w = np.meshgrid(np.arange(H), np.arange(W), indexing='ij')
+    return ((h + reach) * W0 + (w + reach)).reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 5: one plane's wavefront (encode / decode)
+# ---------------------------------------------------------------------------
+
+def plane_forward_plain(mode: int, weights: PlaneWeights,
+                        latent_shape: Tuple[int, int, int], K: int, bias, *,
+                        true_plane=None, streams=None, states=None, gptr=None,
+                        thresh=None, return_logits: bool = False) -> PlaneOut:
+    """Plain PyTorch version of kernel 5: a Python loop over the T2 steps,
+    vectorised over the step's cells and the batch, in the kernel's layer
+    order and roundings.
+
+    bias: the plane's 4 bias rows (B, Hl, Wl, cout) f32 for levels 1..4.
+    encode (mode 1): true_plane (B, H, W) int -> PlaneOut with fsel/ssel.
+    decode (mode 0): streams (B, cap) int32 words, states (B, R) int32
+    (uint32 bits) and gptr (B,) int32 at the plane's start, thresh (B, R)
+    the plane's pull threshold -> PlaneOut with syms, states, gptr.
+    ``return_logits`` also returns the plane's (B, H*W, L) logits."""
+    sched = planar.build_planar_schedule(latent_shape, K)
+    layers = plane_layers(sched.latent_shape, K)
+    dev = weights.w1.device
+    _, H, W = sched.latent_shape
+    HW = H * W
+    kf, L = weights.w1.shape[-1], weights.w4.shape[-1]
+    B = bias[0].shape[0]
+    f32 = torch.float32
+    H0, W0 = sched.grids[0]
+    q = torch.full((B, H0 * W0, 1), float(weights.pad), dtype=f32, device=dev)
+    acts = [torch.empty(B, g[0] * g[1], kf, dtype=f32, device=dev)
+            for g in sched.grids[1:4]]
+    logits = torch.empty(B, HW, L, dtype=f32, device=dev)
+    bias_flat = [b.reshape(B, -1, b.shape[-1]) for b in bias]
+    taps = [ly.taps.to(dev) for ly in layers]
+    cells_all = [torch.from_numpy(ly.cells).to(dev) for ly in layers]
+    skip = torch.from_numpy(layers[2].skip).to(dev)
+    ws = (weights.w1, weights.w2, weights.w3, weights.w4)
+    q_idx = torch.from_numpy(_q_index(sched)).to(dev)
+    idx_cm = torch.from_numpy(sched.idx_cm.astype(np.int64)).to(dev)
+    act_cm = sched.idx_cm < HW
+    act_dev = torch.from_numpy(act_cm).to(dev)
+    if mode == MODE_ENCODE:
+        fsel = torch.zeros(B, sched.T2, R, dtype=torch.int32, device=dev)
+        ssel = torch.zeros_like(fsel)
+        true_l = true_plane.reshape(B, HW).long()
+    else:
+        syms = torch.zeros(B, HW, dtype=torch.int32, device=dev)
+        st = states.long() & rans.MASK32
+        gp = gptr.long()
+        cnt = torch.zeros(B, R, dtype=torch.long, device=dev)
+        thr = thresh.long()
+        stream_l = streams.long()
+    for t in range(sched.T2):
+        src = q
+        for li, ly in enumerate(layers):
+            a, b = ly.ptr[t], ly.ptr[t + 1]
+            if a < b:
+                cells = cells_all[li][a:b]
+                y = ck._layer_step(src, taps[li][a:b], ws[li], bias_flat[li][:, cells])
+                if li == 2:
+                    y = y + acts[0][:, skip[a:b]]
+                else:
+                    y = torch.relu(y)
+                (acts[li] if li < 3 else logits)[:, cells] = y
+            if li < 3:
+                src = acts[li]
+        if not act_cm[t].any():
+            continue
+        act = act_dev[t]
+        idx = torch.clamp(idx_cm[t], max=HW - 1)
+        live = idx[act]
+        fq, cl = ck.logits_to_cdf(logits[:, idx])           # (B, R, L)
+        if mode == MODE_ENCODE:
+            sym = torch.where(act, true_l[:, idx], 0)
+            fs = torch.gather(fq, -1, sym[..., None])[..., 0]
+            ss = torch.gather(cl, -1, sym[..., None])[..., 0]
+            fsel[:, t] = torch.where(act, fs, 0).int()
+            ssel[:, t] = torch.where(act, ss, 0).int()
+        else:
+            sym, st, gp, cnt = rans.decode_step_interleaved(
+                st, gp, stream_l, fq, cl, act[None].expand(B, R), cnt, thr)
+            syms[:, live] = sym[:, act].int()
+        q[:, q_idx[live], 0] = weights.centers[sym[:, act]]
+    acts = tuple(a.reshape(B, g[0], g[1], kf) for a, g in zip(acts, sched.grids[1:4]))
+    qp = q.reshape(B, H0, W0)
+    if mode == MODE_ENCODE:
+        out = PlaneOut(acts, qp, fsel=fsel, ssel=ssel)
+    else:
+        out = PlaneOut(acts, qp, syms=syms.reshape(B, H, W),
+                       states=ck.to_int32_bits(st), gptr=gp.int())
+    return (out, logits) if return_logits else out
+
+
+class _PlaneArgs(ctypes.Structure):
+    _fields_ = ([(k, ctypes.c_int) for k in (
+        'mode', 'B', 'H', 'W', 'K', 'BH', 'CTR', 'T2', 'kf', 'L', 'cap')]
+                + [('nt', ctypes.c_int * 4),
+                   ('tdy', (ctypes.c_int * MAX_TAPS) * 4),
+                   ('tdx', (ctypes.c_int * MAX_TAPS) * 4)]
+                + [(k, ctypes.c_void_p) for k in (
+                    'params', 'bias1', 'bias2', 'bias3', 'bias4', 'act1', 'act2',
+                    'act3', 'qplane', 'true_plane', 'fsel', 'ssel', 'streams',
+                    'states_in', 'gptr_in', 'thresh', 'syms_out', 'states_out',
+                    'gptr_out')])
+
+
+def plane_forward(mode: int, weights: PlaneWeights,
+                  latent_shape: Tuple[int, int, int], K: int, bias, *,
+                  true_plane=None, streams=None, states=None, gptr=None,
+                  thresh=None) -> PlaneOut:
+    """Kernel 5 wrapper. Same contract as plane_forward_plain (without
+    return_logits); a CPU tensor runs the plain version, a CUDA tensor
+    launches csrc/plane_forward.cu."""
+    if mode not in (MODE_DECODE, MODE_ENCODE):
+        raise ValueError(f'mode must be 0 (decode) or 1 (encode), got {mode}')
+    dev = weights.w1.device
+    if dev.type == 'cpu':
+        return plane_forward_plain(mode, weights, latent_shape, K, bias,
+                                   true_plane=true_plane, streams=streams,
+                                   states=states, gptr=gptr, thresh=thresh)
+    if dev.type != 'cuda':
+        raise ValueError(f'plane_forward: unsupported device {dev}')
+    sched = planar.build_planar_schedule(latent_shape, K)
+    _, H, W = sched.latent_shape
+    kf, L = weights.w1.shape[-1], weights.w4.shape[-1]
+    if not 2 <= L <= MAX_L:
+        raise ValueError(f'num_centers must be in [2, {MAX_L}], got {L}')
+    if max(len(tp) for tp in sched.taps) > MAX_TAPS:
+        raise ValueError(f'kernel_size {K} has more than {MAX_TAPS} taps per layer')
+    params = weights.packed()
+    f32, i32 = torch.float32, torch.int32
+    B = bias[0].shape[0]
+    for l, b in enumerate(bias):
+        g = sched.grids[l + 1]
+        ck._check_cuda(f'bias{l + 1}', b, f32, (B, g[0], g[1], L if l == 3 else kf), dev)
+    dummy = torch.zeros(1, dtype=i32, device=dev)
+    if mode == MODE_ENCODE:
+        ck._check_cuda('true_plane', true_plane, i32, (B, H, W), dev)
+        fsel = torch.empty(B, sched.T2, R, dtype=i32, device=dev)
+        ssel = torch.empty_like(fsel)
+        streams = states = gptr = thresh = syms = states_out = gptr_out = dummy
+        cap = 1
+    else:
+        cap = streams.shape[1]
+        ck._check_cuda('streams', streams, i32, (B, cap), dev)
+        ck._check_cuda('states', states, i32, (B, R), dev)
+        ck._check_cuda('gptr', gptr, i32, (B,), dev)
+        ck._check_cuda('thresh', thresh, i32, (B, R), dev)
+        syms = torch.empty(B, H, W, dtype=i32, device=dev)
+        states_out = torch.empty(B, R, dtype=i32, device=dev)
+        gptr_out = torch.empty(B, dtype=i32, device=dev)
+        true_plane = fsel = ssel = dummy
+    acts = [torch.empty(B, g[0], g[1], kf, dtype=f32, device=dev)
+            for g in sched.grids[1:4]]
+    qp = torch.empty(B, *sched.grids[0], dtype=f32, device=dev)
+    p = build.ptr
+    a = _PlaneArgs(mode=mode, B=B, H=H, W=W, K=K, BH=sched.BH, CTR=sched.CTR,
+                   T2=sched.T2, kf=kf, L=L, cap=cap, params=p(params),
+                   bias1=p(bias[0]), bias2=p(bias[1]), bias3=p(bias[2]),
+                   bias4=p(bias[3]), act1=p(acts[0]), act2=p(acts[1]),
+                   act3=p(acts[2]), qplane=p(qp), true_plane=p(true_plane),
+                   fsel=p(fsel), ssel=p(ssel), streams=p(streams),
+                   states_in=p(states), gptr_in=p(gptr), thresh=p(thresh),
+                   syms_out=p(syms), states_out=p(states_out), gptr_out=p(gptr_out))
+    for l, tp in enumerate(sched.taps):
+        a.nt[l] = len(tp)
+        for k, (dy, dx) in enumerate(tp):
+            a.tdy[l][k] = dy
+            a.tdx[l][k] = dx
+    fn = build.load('plane_forward').plane_forward
+    fn.argtypes = [_PlaneArgs, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        err = fn(a, build.stream_ptr(dev))
+    build.check(err, 'plane_forward')
+    build.LAUNCHES['plane_forward_encode' if mode == MODE_ENCODE
+                   else 'plane_forward_decode'] += 1
+    acts = tuple(acts)
+    if mode == MODE_ENCODE:
+        return PlaneOut(acts, qp, fsel=fsel, ssel=ssel)
+    return PlaneOut(acts, qp, syms=syms, states=states_out, gptr=gptr_out)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 6: reverse interleaved rANS over the (plane, step) rows
+# ---------------------------------------------------------------------------
+
+def _full_active(sched: planar.PlanarSchedule) -> np.ndarray:
+    """(C * T2, R) bool activity of every (plane, step) row in coding order."""
+    C = sched.latent_shape[0]
+    return np.tile(sched.idx_cm < sched.latent_shape[1] * sched.latent_shape[2], (C, 1))
+
+
+@functools.lru_cache(maxsize=8)
+def _full_idx_cm(latent_shape, K: int, device: str) -> torch.Tensor:
+    sched = planar.build_planar_schedule(latent_shape, K)
+    C = sched.latent_shape[0]
+    return torch.from_numpy(np.tile(sched.idx_cm, (C, 1))).to(device)
+
+
+def plane_reverse_plain(fsel: torch.Tensor, ssel: torch.Tensor,
+                        latent_shape: Tuple[int, int, int], K: int,
+                        x0: int = rans.RANS_L):
+    """Plain version of kernel 6: fsel/ssel (B, C*T2, R) int32 in (plane,
+    step) coding order -> (words (B, cap), n_words (B,), states (B, R), k
+    (B, R)) as ck.reverse_plain; within a step words go in descending lane
+    rank, and the warmup counts k are taken before the renormalisation."""
+    sched = planar.build_planar_schedule(latent_shape, K)
+    return ck.reverse_plain(fsel, ssel, _full_active(sched), sched.stream_cap, x0)
+
+
+def plane_reverse(fsel: torch.Tensor, ssel: torch.Tensor,
+                  latent_shape: Tuple[int, int, int], K: int,
+                  x0: int = rans.RANS_L):
+    """Kernel 6 wrapper; same contract as plane_reverse_plain."""
+    if not 1 <= x0 <= rans.RANS_L:
+        raise ValueError(f'x0 must be in [1, RANS_L], got {x0}')
+    if fsel.device.type == 'cpu':
+        return plane_reverse_plain(fsel, ssel, latent_shape, K, x0)
+    if fsel.device.type != 'cuda':
+        raise ValueError(f'plane_reverse: unsupported device {fsel.device}')
+    sched = planar.build_planar_schedule(latent_shape, K)
+    _, H, W = sched.latent_shape
+    out = ck.reverse_launch(fsel, ssel, _full_idx_cm(sched.latent_shape, K, str(fsel.device)),
+                            H * W, sched.stream_cap, x0)
+    build.LAUNCHES['plane_reverse'] += 1
+    return out

@@ -1,0 +1,45 @@
+// The CDF quantizer shared by the port's forward kernels (kernel 2,
+// wavefront_forward.cu, and kernel 5, plane_forward.cu).
+//
+// Replaces imgcomp_cvpr_tpu/coding/pallas_kernel.py::_quantize_cdf_kernel
+// (:547-563), which both TPU forward kernels call (pallas_kernel.py:48-50,
+// planar_kernel.py:206). Encode and decode compute their tables with this one
+// function, which is what makes the streams decode bit-exactly. Its plain
+// PyTorch twin is coding/cuda_kernel.py::logits_to_cdf.
+
+#pragma once
+
+#include <math.h>
+
+#ifndef MAX_L
+#define MAX_L 16
+#endif
+#ifndef SCALE
+#define SCALE 65536u
+#endif
+
+// logits (L,) -> (freq, cdf_low) with sum(freq) == SCALE: softmax with a
+// sequential sum, floor(p * (SCALE - L)) + 1, the deficit to the lowest
+// index of the max probability, exclusive cumsum.
+__device__ __forceinline__ void cdf_from_logits(const float* lg, int L, int* freq,
+                                                int* cdf) {
+  float m = lg[0];
+  for (int l = 1; l < L; ++l) m = fmaxf(m, lg[l]);
+  float e[MAX_L];
+  for (int l = 0; l < L; ++l) e[l] = expf(lg[l] - m);
+  float s = e[0];
+  for (int l = 1; l < L; ++l) s = s + e[l];
+  const float scale_l = (float)(SCALE - (unsigned)L);
+  float pmax = -1.f;
+  int am = 0, total = 0;
+  for (int l = 0; l < L; ++l) {
+    const float p = e[l] / s;
+    const int f = (int)floorf(p * scale_l) + 1;
+    freq[l] = f;
+    total += f;
+    if (p > pmax) { pmax = p; am = l; }
+  }
+  freq[am] += (int)SCALE - total;
+  int acc = 0;
+  for (int l = 0; l < L; ++l) { cdf[l] = acc; acc += freq[l]; }
+}

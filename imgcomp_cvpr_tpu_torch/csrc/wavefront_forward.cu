@@ -6,8 +6,9 @@
 // layout) and its dec_only variant (mode 0, the sequential 32-lane
 // interleaved rANS decode inside the scan). The CDF quantizer
 // _quantize_cdf_kernel (:547-563) is the __device__ function
-// cdf_from_logits below, which both modes call on logits computed by the
-// same code: that is what makes the port's streams decode bit-exactly.
+// cdf_from_logits of cdf.cuh (shared with kernel 5), which both modes call
+// on logits computed by the same code: that is what makes the port's
+// streams decode bit-exactly.
 //
 // Design. One thread block per image walks the T wavefront steps in order.
 // Activations of the three hidden layers live in device memory, one row of
@@ -48,6 +49,8 @@
 #define RANS_L 65536u
 #define THREADS 1024
 
+#include "cdf.cuh"
+
 struct FwdArgs {
   int mode, B, T, n, kf, L, CQ, cap, G1, G2, G3;
   const float* params;
@@ -65,32 +68,6 @@ struct FwdArgs {
   const int* thresh;
   int* syms_out;
 };
-
-// logits (L,) -> (freq, cdf_low) with sum(freq) == SCALE: softmax with a
-// sequential sum, floor(p * (SCALE - L)) + 1, the deficit to the lowest
-// index of the max probability, exclusive cumsum. Shared by both modes.
-__device__ __forceinline__ void cdf_from_logits(const float* lg, int L, int* freq,
-                                                int* cdf) {
-  float m = lg[0];
-  for (int l = 1; l < L; ++l) m = fmaxf(m, lg[l]);
-  float e[MAX_L];
-  for (int l = 0; l < L; ++l) e[l] = expf(lg[l] - m);
-  float s = e[0];
-  for (int l = 1; l < L; ++l) s = s + e[l];
-  const float scale_l = (float)(SCALE - (unsigned)L);
-  float pmax = -1.f;
-  int am = 0, total = 0;
-  for (int l = 0; l < L; ++l) {
-    const float p = e[l] / s;
-    const int f = (int)floorf(p * scale_l) + 1;
-    freq[l] = f;
-    total += f;
-    if (p > pmax) { pmax = p; am = l; }
-  }
-  freq[am] += (int)SCALE - total;
-  int acc = 0;
-  for (int l = 0; l < L; ++l) { cdf[l] = acc; acc += freq[l]; }
-}
 
 // One layer phase of step t: every (cell of the step, output channel).
 __device__ __forceinline__ void layer_phase(

@@ -140,6 +140,24 @@ class ProbClassifier(nn.Module):
         return (nll * LOG2_E).permute(0, 2, 3, 1)
 
 
+def init_params(pc: ProbClassifier, seed: int) -> ProbClassifier:
+    """Fresh weights for ``pc`` in place, from an explicit torch.Generator
+    seeded with ``seed``: the JAX initializer's distributions (glorot
+    uniform over (kd, K, K, cin, cout), fan_in = cin kd K K and fan_out =
+    cout kd K K; zero biases). The numbers differ from jax.random's."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for conv in (pc.net.conv0, pc.net.res1.conv1, pc.net.res1.conv2,
+                     pc.net.conv_out):
+            cout, cin = conv.weight.shape[:2]
+            rf = int(np.prod(conv.weight.shape[2:]))
+            limit = float(np.sqrt(6.0 / (cin * rf + cout * rf)))
+            w = (torch.rand(conv.weight.shape, generator=g) * 2 - 1) * limit
+            conv.weight.copy_(w.to(conv.weight.device))
+            conv.bias.zero_()
+    return pc
+
+
 def auto_pad_value(pc_config, centers: torch.Tensor) -> float:
     """centers[0] when use_centers_for_padding, else 0 (ref
     probclass.py:59-61). learn_pad_var is out of this slice."""

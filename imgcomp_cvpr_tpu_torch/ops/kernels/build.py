@@ -3,7 +3,8 @@
 Every source in ``imgcomp_cvpr_tpu_torch/csrc/*.cu`` has a plain C
 interface and is compiled on first use, for ``sm_90a`` (Hopper), into
 ``build/torch_kernels/lib<name>-<hash>.so`` at the repository root (the
-hash of the source keys the file, so an edited source is rebuilt). All
+hash of the source and of the shared headers ``csrc/*.cuh`` keys the file,
+so an edited source or header is rebuilt). All
 sources are compiled in parallel, one ``nvcc`` process each, the first time
 any kernel is asked for. Nothing is compiled when this module is imported:
 the CPU tests import it and never build.
@@ -28,7 +29,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build', 'torch_kernels')
-SOURCES = ('quantize', 'wavefront_forward', 'rans_reverse')
+SOURCES = ('quantize', 'wavefront_forward', 'rans_reverse', 'plane_forward')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
@@ -37,6 +38,9 @@ LAUNCHES: Dict[str, int] = {
     'wavefront_forward_encode': 0,
     'wavefront_forward_decode': 0,
     'rans_reverse': 0,
+    'plane_forward_encode': 0,
+    'plane_forward_decode': 0,
+    'plane_reverse': 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -57,8 +61,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + '.cu'), 'rb') as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    h = hashlib.sha256()
+    for src in [name + '.cu'] + sorted(f for f in os.listdir(CSRC) if f.endswith('.cuh')):
+        with open(os.path.join(CSRC, src), 'rb') as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:12]
     return os.path.join(BUILD_DIR, f'lib{name}-{digest}.so')
 
 

@@ -274,3 +274,21 @@ def test_rans_primitives_match_jax():
     np.testing.assert_array_equal(ts_[0].numpy(), np.asarray(js_))
     np.testing.assert_array_equal(tst[0].numpy().astype(np.uint32), np.asarray(jst))
     assert int(tg[0]) == int(jg)
+
+
+def test_plain_k3_tables_unchanged():
+    """The K=3 plain encode tables are pinned to their digest from before the
+    CDF function moved into csrc/cdf.cuh (shared by kernels 2 and 5): the
+    repair must not move a single entry."""
+    import hashlib
+    cfg, _ = tconfig.parse_spec('cvpr/res_shallow', 'pc')
+    pc = tpc.ProbClassifier(cfg.replace(arch_param__k=8), 6, device='cpu')
+    g = torch.Generator().manual_seed(11)
+    with torch.no_grad():
+        for p in pc.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.3)
+    syms = torch.from_numpy(np.random.RandomState(11).randint(0, 6, (2, 168))).int()
+    fw = tcc.fold_weights(pc, torch.linspace(-2, 2, 6))
+    f, s = ck.wavefront_forward_plain(ck.MODE_ENCODE, fw, (4, 6, 7), true_syms=syms)
+    digest = hashlib.sha256(f.numpy().tobytes() + s.numpy().tobytes()).hexdigest()
+    assert digest == 'f7ef5e73660c5d737b49131e64a9eb360814a5a7ddb311f7927b2fc8275ef2a5'

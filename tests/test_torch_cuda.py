@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from imgcomp_cvpr_tpu_torch.coding import codec, cuda_codec, cuda_kernel as ck, rans
+from imgcomp_cvpr_tpu_torch.coding import planar_codec, planar_kernel as plk
 from imgcomp_cvpr_tpu_torch.models import probclass as pcl
 from imgcomp_cvpr_tpu_torch.ops.kernels import build, quantize as qk
 from imgcomp_cvpr_tpu_torch.utils import config as config_lib
@@ -99,3 +100,121 @@ def test_codec_roundtrip_through_kernels(cuda_device):
     assert build.LAUNCHES['wavefront_forward_decode'] == 1
     assert build.LAUNCHES['rans_reverse'] == 1
     assert all(codec.stream_impl_id(r.bitstream) == codec.IMPL_CUDA for r in res)
+
+
+# ---------------------------------------------------------------------------
+# Planar codec (kernels 5 and 6)
+# ---------------------------------------------------------------------------
+
+def _planar_pc(device, K=5, kf=8, L=6, seed=0):
+    cfg, _ = config_lib.parse_spec('base', 'pc')
+    cfg = cfg.replace(kernel_size=K, arch_param__k=kf)
+    return pcl.init_params(pcl.ProbClassifier(cfg, L, device=device), seed), cfg
+
+
+def _plane_inputs(device, shape, K=5, b=2, seed=0, plane=2):
+    """Bias rows of plane ``plane`` with real history (planes below it
+    encoded through the plain version), the fold and the symbols."""
+    pc, cfg = _planar_pc(device, K=K, seed=seed)
+    centers = torch.linspace(-2, 2, 6, device=device)
+    coder = planar_codec.PlanarCoder(pc, cfg, device=device)
+    sched, fold = coder._prepare(shape, centers)
+    rng = np.random.RandomState(seed)
+    syms = torch.from_numpy(rng.randint(0, 6, (b,) + shape)).int().to(device)
+    hist = coder._history(fold, sched, b)
+    for d in range(plane):
+        out = plk.plane_forward_plain(plk.MODE_ENCODE, fold.top, shape, K,
+                                      coder.bias_rows(fold, hist),
+                                      true_plane=syms[:, d].contiguous())
+        coder._push(hist, out)
+    return coder, sched, fold, syms, coder.bias_rows(fold, hist)
+
+
+@pytest.mark.parametrize('K,shape', [(5, (4, 8, 8)), (5, (3, 12, 20)), (3, (3, 5, 9))])
+def test_plane_forward_kernel_matches_plain(cuda_device, K, shape):
+    """Kernel 5 in both modes against its plain version on one plane with
+    real history: encode tables and activations equal (the plain version
+    repeats the kernel's roundings; up to 0.1% boundary flips tolerated for
+    expf vs torch.exp), and decode recovers the plane from a stream the
+    plain reverse encoder wrote, with the same end state."""
+    plane = min(2, shape[0] - 1)
+    coder, sched, fold, syms, bias = _plane_inputs(cuda_device, shape, K=K, plane=plane)
+    true_plane = syms[:, plane].contiguous()
+    before = build.LAUNCHES['plane_forward_encode']
+    ok = plk.plane_forward(plk.MODE_ENCODE, fold.top, shape, K, bias, true_plane=true_plane)
+    assert build.LAUNCHES['plane_forward_encode'] == before + 1
+    op = plk.plane_forward_plain(plk.MODE_ENCODE, fold.top, shape, K, bias,
+                                 true_plane=true_plane)
+    act = torch.from_numpy(sched.idx_cm < shape[1] * shape[2]).to(cuda_device)
+    flips = ((ok.fsel != op.fsel) | (ok.ssel != op.ssel)) & act
+    assert flips.sum().item() <= int(1e-3 * act.sum().item() * 2)
+    for a, b in zip(ok.acts + (ok.q,), op.acts + (op.q,)):
+        assert (a - b).abs().max().item() <= 1e-6
+    # Decode: one plane's stream from the plain reverse encoder (a one-plane
+    # volume has the same (step, lane) rows as this plane).
+    one = (1,) + shape[1:]
+    words, n, st, _ = plk.plane_reverse_plain(op.fsel, op.ssel, one, K, rans.RANS_L)
+    streams = torch.zeros(2, sched.stream_cap, dtype=torch.int32, device=cuda_device)
+    for i in range(2):
+        streams[i, :n[i]] = words[i, :n[i]].flip(0)
+    gptr = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    thresh = torch.full((2, plk.R), 1 << 30, dtype=torch.int32, device=cuda_device)
+    dk = plk.plane_forward(plk.MODE_DECODE, fold.top, shape, K, bias, streams=streams,
+                           states=st, gptr=gptr, thresh=thresh)
+    dp = plk.plane_forward_plain(plk.MODE_DECODE, fold.top, shape, K, bias,
+                                 streams=streams, states=st, gptr=gptr, thresh=thresh)
+    assert torch.equal(dk.syms, true_plane) and torch.equal(dp.syms, true_plane)
+    assert torch.equal(dk.states, dp.states) and torch.equal(dk.gptr, dp.gptr)
+    assert torch.equal(dk.gptr, n)
+
+
+@pytest.mark.parametrize('x0', [1, rans.RANS_L])
+def test_plane_reverse_kernel_byte_identical(cuda_device, x0):
+    shape, K = (3, 8, 8), 5
+    pc, cfg = _planar_pc(cuda_device, seed=2)
+    centers = torch.linspace(-2, 2, 6, device=cuda_device)
+    coder = planar_codec.PlanarCoder(pc, cfg, device=cuda_device)
+    _, fold = coder._prepare(shape, centers)
+    syms = torch.from_numpy(np.random.RandomState(2).randint(0, 6, (3,) + shape)).int()
+    fsel, ssel = coder.encode_tables(syms.to(cuda_device), fold)
+    before = build.LAUNCHES['plane_reverse']
+    wk, nk, stk, kk = plk.plane_reverse(fsel, ssel, shape, K, x0)
+    assert build.LAUNCHES['plane_reverse'] == before + 1
+    wp, npl, stp, kp = plk.plane_reverse_plain(fsel, ssel, shape, K, x0)
+    assert torch.equal(nk, npl)
+    for i in range(3):
+        assert torch.equal(wk[i, :nk[i]], wp[i, :npl[i]])
+    assert torch.equal(stk, stp) and torch.equal(kk, kp)
+
+
+def test_planar_roundtrip_through_kernels(cuda_device):
+    shape = (4, 8, 8)
+    pc, cfg = _planar_pc(cuda_device, seed=3)
+    centers = torch.linspace(-2, 2, 6, device=cuda_device)
+    syms = torch.from_numpy(np.random.RandomState(3).randint(0, 6, (2,) + shape)).to(cuda_device)
+    lc = codec.LatentCodec(pc, cfg, device=cuda_device)
+    build.reset_launches()
+    res = lc.encode_batch(syms, centers)
+    dec = lc.decode_batch([r.bitstream for r in res], centers)
+    assert torch.equal(dec.long(), syms.long())
+    assert build.LAUNCHES['plane_forward_encode'] == shape[0]
+    assert build.LAUNCHES['plane_forward_decode'] == shape[0]
+    assert build.LAUNCHES['plane_reverse'] == 1
+    assert build.LAUNCHES['wavefront_forward_encode'] == 0
+    assert all(codec.stream_impl_id(r.bitstream) == codec.IMPL_CUDA_PLANAR for r in res)
+    assert all(codec.deserialize_stream(r.bitstream)[4] is not None for r in res)
+
+
+def test_planar_streams_batch_invariant(cuda_device):
+    """Encode 3 images, decode each stream alone: the bytes equal a B=1
+    encode of that image (bias rows are a fixed function of one image)."""
+    shape = (3, 16, 24)
+    pc, cfg = _planar_pc(cuda_device, seed=4)
+    centers = torch.linspace(-2, 2, 6, device=cuda_device)
+    syms = torch.from_numpy(np.random.RandomState(4).randint(0, 6, (3,) + shape)).to(cuda_device)
+    lc = codec.LatentCodec(pc, cfg, device=cuda_device)
+    res = lc.encode_batch(syms, centers)
+    for i in range(3):
+        assert lc.encode_batch(syms[i:i + 1], centers)[0].bitstream == res[i].bitstream
+        dec = lc.decode_batch([res[i].bitstream], centers)
+        assert torch.equal(dec[0].long(), syms[i].long())

@@ -1,0 +1,46 @@
+"""The port imports neither JAX nor the JAX package.
+
+A subprocess installs a meta-path finder that refuses ``jax``, ``jaxlib``
+and ``imgcomp_cvpr_tpu`` (not ``imgcomp_cvpr_tpu_torch``), then imports every
+module of the port and ``chip_smoke``; any such import raises there.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+GUARD = textwrap.dedent('''
+    import importlib, pkgutil, sys
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            top = name.split('.')[0]
+            if top in ('jax', 'jaxlib', 'imgcomp_cvpr_tpu'):
+                raise ImportError('the port must not import ' + name)
+            return None
+
+    for mod in list(sys.modules):
+        if mod.split('.')[0] in ('jax', 'jaxlib', 'imgcomp_cvpr_tpu'):
+            del sys.modules[mod]
+    sys.meta_path.insert(0, Refuse())
+    import imgcomp_cvpr_tpu_torch as pkg
+    mods = ['chip_smoke', 'imgcomp_cvpr_tpu_torch']
+    mods += [m.name for m in pkgutil.walk_packages(pkg.__path__, 'imgcomp_cvpr_tpu_torch.')]
+    for m in mods:
+        importlib.import_module(m)
+    bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'imgcomp_cvpr_tpu'))
+    assert not bad, bad
+    print(len(mods), 'modules')
+''')
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, '-c', GUARD], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    n = int(out.stdout.split()[-2])
+    assert n >= 15, out.stdout
