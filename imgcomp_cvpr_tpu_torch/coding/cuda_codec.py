@@ -70,7 +70,7 @@ def fold_weights(pc: pc_lib.ProbClassifier, centers: torch.Tensor
     ws = [_taps(c.weight.detach().float(), first=(i == 0)).contiguous()
           for i, c in enumerate(convs)]
     bs = [c.bias.detach().float().contiguous() for c in convs]
-    pad = pc_lib.auto_pad_value(pc.config, centers)
+    pad = float(pc_lib.auto_pad_value(pc.config, centers, pc))
     k1, k2, k3 = pad_constants(pc, pad)
     return ck.FoldedWeights(
         ws[0], bs[0], ws[1], bs[1], ws[2], bs[2], ws[3], bs[3],

@@ -60,7 +60,7 @@ def fold_planar(pc: pc_lib.ProbClassifier, centers: torch.Tensor) -> PlanarFold:
         lows.append(w[:, :, :kd - 1].permute(0, 2, 1, 3, 4)
                     .reshape(cout, (kd - 1) * cin, K, K).contiguous())
         bs.append(conv.bias.detach().float().contiguous())
-    pad = pc_lib.auto_pad_value(pc.config, centers)
+    pad = float(pc_lib.auto_pad_value(pc.config, centers, pc))
     consts = tuple(k.float().to(dev) for k in cuda_codec.pad_constants(pc, pad))
     top = pk.PlaneWeights(*tops, torch.full((1,), pad, dtype=torch.float32, device=dev),
                           centers.detach().float().contiguous())

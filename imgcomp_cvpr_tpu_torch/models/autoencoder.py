@@ -1,11 +1,16 @@
 """Convolutional autoencoder with importance map (port of
 imgcomp_cvpr_tpu/models/autoencoder.py, ref autoencoder.py:213-268).
 
-Eval-mode only in this slice: BatchNorm uses its running statistics (eps
-1e-5, flax's order: (x - mean) * (scale * rsqrt(var + eps)) + bias). The
-towers run in float32 and NCHW internally; ``encode``/``decode`` take and
-return NHWC like the JAX package. Module and parameter names mirror the
-flax tree so weights.py can map the trained npz one key to one tensor.
+Every forward takes an explicit ``train`` flag like the flax modules (the
+nn.Module training mode is not consulted). BatchNorm is written out to
+match flax's (eps 1e-5, (x - mean) * (scale * rsqrt(var + eps)) + bias):
+with ``train`` it normalizes with the batch mean and the biased batch
+variance E[x^2] - E[x]^2 (clipped at 0) and moves the running statistics
+as ra = 0.9 ra + 0.1 batch with that same biased variance; without, it
+uses the running statistics. The towers run in float32 and NCHW
+internally; the public methods take and return NHWC like the JAX package.
+Module and parameter names mirror the flax tree so weights.py can map a
+parameter tree one key to one tensor.
 """
 
 from __future__ import annotations
@@ -37,7 +42,10 @@ class EncoderOutput(NamedTuple):
 
 
 class SlimConv(nn.Module):
-    """conv (no bias) -> eval BatchNorm -> optional ReLU, TF-'SAME', NCHW."""
+    """conv (no bias) -> BatchNorm -> optional ReLU, TF-'SAME', NCHW."""
+
+    BN_MOMENTUM = 0.9
+    BN_EPS = 1e-5
 
     def __init__(self, cin: int, features: int, kernel: int, stride: int = 1,
                  act: bool = True, transpose: bool = False):
@@ -51,14 +59,22 @@ class SlimConv(nn.Module):
         self.register_buffer('bn_mean', torch.zeros(features))
         self.register_buffer('bn_var', torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if self.transpose:
             y = tf_compat.conv2d_transpose_same_nchw(x, self.weight, self.stride)
         else:
             y = tf_compat.conv2d_same_nchw(x, self.weight, self.stride)
-        mul = torch.rsqrt(self.bn_var + 1e-5) * self.bn_scale
-        y = (y - self.bn_mean[:, None, None]) * mul[:, None, None] \
-            + self.bn_bias[:, None, None]
+        if train:
+            mean = y.mean((0, 2, 3))
+            var = torch.clamp(torch.square(y).mean((0, 2, 3)) - torch.square(mean), min=0.0)
+            with torch.no_grad():   # the running statistics, updated in place
+                m = self.BN_MOMENTUM
+                self.bn_mean.mul_(m).add_(mean, alpha=1 - m)
+                self.bn_var.mul_(m).add_(var, alpha=1 - m)
+        else:
+            mean, var = self.bn_mean, self.bn_var
+        mul = torch.rsqrt(var + self.BN_EPS) * self.bn_scale
+        y = (y - mean[:, None, None]) * mul[:, None, None] + self.bn_bias[:, None, None]
         return torch.relu(y) if self.act else y
 
 
@@ -71,8 +87,8 @@ class ResidualBlock(nn.Module):
         self.conv1 = SlimConv(features, features, 3, act=act)
         self.conv2 = SlimConv(features, features, 3, act=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv2(self.conv1(x)) + x
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.conv2(self.conv1(x, train), train) + x
 
 
 class Encoder(nn.Module):
@@ -90,18 +106,18 @@ class Encoder(nn.Module):
         num_out = config.num_chan_bn + (1 if config.heatmap else 0)
         self.to_bn = SlimConv(n, num_out, 5, stride=2, act=False)
 
-    def forward(self, x_nhwc: torch.Tensor) -> EncoderOutput:
+    def forward(self, x_nhwc: torch.Tensor, train: bool = False) -> EncoderOutput:
         cfg = self.config
         net = normalize(x_nhwc, cfg.normalization).permute(0, 3, 1, 2)
-        net = self.h2(self.h1(net))
+        net = self.h2(self.h1(net, train), train)
         residual_input_0 = net
         for b in range(cfg.arch_param_B):
             residual_input_b = net
             for i in range(3):
-                net = getattr(self, f'res_block_enc_{b}_{i + 1}')(net)
+                net = getattr(self, f'res_block_enc_{b}_{i + 1}')(net, train)
             net = net + residual_input_b
-        net = self.res_block_enc_final(net) + residual_input_0
-        net = self.to_bn(net).permute(0, 2, 3, 1)
+        net = self.res_block_enc_final(net, train) + residual_input_0
+        net = self.to_bn(net, train).permute(0, 2, 3, 1)
         if cfg.heatmap:
             heatmap = get_heatmap3d(net)
             net = heatmap * net[..., 1:]
@@ -124,38 +140,71 @@ class Decoder(nn.Module):
         self.h12 = SlimConv(n, n // 2, 5, stride=2, transpose=True)
         self.h13 = SlimConv(n // 2, 3, 5, stride=2, act=False, transpose=True)
 
-    def forward(self, q_nhwc: torch.Tensor) -> torch.Tensor:
+    def forward(self, q_nhwc: torch.Tensor, train: bool = False) -> torch.Tensor:
         cfg = self.config
-        net = self.from_bn(q_nhwc.permute(0, 3, 1, 2))
+        net = self.from_bn(q_nhwc.permute(0, 3, 1, 2), train)
         residual_input_0 = net
         for b in range(cfg.arch_param_B):
             residual_input_b = net
             for i in range(3):
-                net = getattr(self, f'res_block_dec_{b}_{i + 1}')(net)
+                net = getattr(self, f'res_block_dec_{b}_{i + 1}')(net, train)
             net = net + residual_input_b
-        net = self.dec_after_res(net) + residual_input_0
-        net = self.h13(self.h12(net)).permute(0, 2, 3, 1)
+        net = self.dec_after_res(net, train) + residual_input_0
+        net = self.h13(self.h12(net, train), train).permute(0, 2, 3, 1)
         return torch.clamp(denormalize(net, cfg.normalization), 0.0, 255.0)
 
 
 class CVPRAutoencoder(nn.Module):
-    """Eval-mode AE; ``encode``/``decode`` take and return NHWC tensors.
-    Its parameters live on ``device`` (raises for 'cuda' with no card)."""
+    """Top-level AE on NHWC tensors. ``forward(x, train)`` is the training
+    entry (differentiable; decodes qbar when training, qhard otherwise);
+    ``encode``/``decode`` are the codec path's entries: running statistics,
+    no autograd graph. Its parameters live on ``device`` (raises for 'cuda'
+    with no card)."""
 
     def __init__(self, config, device='cuda'):
         super().__init__()
         self.config = config
         self.encoder = Encoder(config)
         self.decoder = Decoder(config)
-        self.to(resolve_device(device)).eval()
+        self.to(resolve_device(device))
+
+    def forward(self, x_nhwc: torch.Tensor, train: bool):
+        enc = self.encoder(x_nhwc, train)
+        x_out = self.decoder(enc.qbar if train else enc.qhard, train)
+        return enc, x_out
 
     @torch.no_grad()
     def encode(self, x_nhwc: torch.Tensor) -> EncoderOutput:
-        return self.encoder(x_nhwc)
+        return self.encoder(x_nhwc, False)
 
     @torch.no_grad()
     def decode(self, q_nhwc: torch.Tensor) -> torch.Tensor:
-        return self.decoder(q_nhwc)
+        return self.decoder(q_nhwc, False)
+
+
+def init_params(ae: CVPRAutoencoder, seed: int) -> CVPRAutoencoder:
+    """Fresh weights for ``ae`` in place, from an explicit torch.Generator
+    seeded with ``seed``: the flax initializers' distributions (glorot
+    uniform over each conv's (k, k, cin, cout) kernel, fan_in = cin k k and
+    fan_out = cout k k; BatchNorm scale 1, bias 0, mean 0, var 1; centers
+    uniform in centers_initial_range). The numbers differ from jax.random's."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in ae.modules():
+            if not isinstance(m, SlimConv):
+                continue
+            a, b, k, _ = m.weight.shape      # (cout, cin) or, transposed, (cin, cout)
+            limit = float(np.sqrt(6.0 / ((a + b) * k * k)))
+            w = (torch.rand(m.weight.shape, generator=g) * 2 - 1) * limit
+            m.weight.copy_(w.to(m.weight.device))
+            m.bn_scale.fill_(1.0)
+            m.bn_bias.zero_()
+            m.bn_mean.zero_()
+            m.bn_var.fill_(1.0)
+        cfg = ae.config
+        centers = quantizer_lib.init_centers(g, cfg.num_centers, cfg.centers_initial_range)
+        ae.encoder.centers.copy_(centers.to(ae.encoder.centers.device))
+    return ae
 
 
 def get_network_cls(config):

@@ -11,7 +11,7 @@ conv3d's (cout, cin, kd, k, k) layout.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,6 +84,10 @@ class ResShallow(nn.Module):
         self.res1.conv1 = MaskedConv3D(f, f, k, first=False, act=True)
         self.res1.conv2 = MaskedConv3D(f, f, k, first=False, act=False)
         self.conv_out = MaskedConv3D(f, num_centers, k, first=False, act=True)
+        if getattr(config, 'learn_pad_var', False):
+            # Learned pad value; auto_pad_value hands it to pad_volume,
+            # whose (v - pv) + pv form carries the gradient back into it.
+            self.pad_var = nn.Parameter(torch.zeros(()))
 
     def forward(self, volume: torch.Tensor, return_activations: bool = False):
         """(N, D, H, W) padded volume -> (N, L, D', H', W') logits (NCDHW);
@@ -101,9 +105,13 @@ class ResShallow(nn.Module):
 
 def pad_volume(volume_dhw: torch.Tensor, cs: int, pad_value) -> torch.Tensor:
     """Pad (N, D, H, W): depth gets cs//2 in front only, H/W cs//2 on both
-    sides (ref probclass.py:268-292)."""
+    sides (ref probclass.py:268-292). ``pad_value`` is a number or a 0-d
+    tensor; zero-padding (v - pv) and adding pv back pads with pv and lets
+    the gradient flow into a pv that requires it (centers[0] or the learned
+    pad variable)."""
     pad = cs // 2
-    return F.pad(volume_dhw, (pad, pad, pad, pad, pad, 0), value=float(pad_value))
+    pv = torch.as_tensor(pad_value, dtype=volume_dhw.dtype, device=volume_dhw.device)
+    return F.pad(volume_dhw - pv, (pad, pad, pad, pad, pad, 0)) + pv
 
 
 class ProbClassifier(nn.Module):
@@ -119,7 +127,7 @@ class ProbClassifier(nn.Module):
         self.num_centers = num_centers
         self.net = ResShallow(pc_config, num_centers)
         self.context_size = context_size(pc_config)
-        self.to(resolve_device(device)).eval()
+        self.to(resolve_device(device))
 
     def logits(self, q_nhwc: torch.Tensor, pad_value) -> torch.Tensor:
         """(N, H, W, C) latent -> (N, D=C, H, W, L) logits for every symbol."""
@@ -158,9 +166,15 @@ def init_params(pc: ProbClassifier, seed: int) -> ProbClassifier:
     return pc
 
 
-def auto_pad_value(pc_config, centers: torch.Tensor) -> float:
-    """centers[0] when use_centers_for_padding, else 0 (ref
-    probclass.py:59-61). learn_pad_var is out of this slice."""
+def auto_pad_value(pc_config, centers: torch.Tensor,
+                   pc: Optional[ProbClassifier] = None) -> torch.Tensor:
+    """0-d pad value of the context model's causal padding: the learned pad
+    variable of ``pc`` when learn_pad_var is set, else centers[0] when
+    use_centers_for_padding, else 0 (ref probclass.py:59-61). The tensor
+    keeps its autograd history; a caller that needs a number takes float()."""
     if getattr(pc_config, 'learn_pad_var', False):
-        raise NotImplementedError('learn_pad_var is not ported yet')
-    return float(centers[0]) if pc_config.use_centers_for_padding else 0.0
+        if pc is None:
+            raise ValueError('learn_pad_var=True requires pc to resolve the '
+                             'learned pad variable')
+        return pc.net.pad_var
+    return centers[0] if pc_config.use_centers_for_padding else centers.new_zeros(())

@@ -29,12 +29,14 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build', 'torch_kernels')
-SOURCES = ('quantize', 'wavefront_forward', 'rans_reverse', 'plane_forward')
+SOURCES = ('quantize', 'quantize_bwd', 'wavefront_forward', 'rans_reverse',
+           'plane_forward')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 LAUNCHES: Dict[str, int] = {
     'quantize': 0,
+    'quantize_bwd': 0,
     'wavefront_forward_encode': 0,
     'wavefront_forward_decode': 0,
     'rans_reverse': 0,

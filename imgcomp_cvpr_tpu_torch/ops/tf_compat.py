@@ -15,7 +15,7 @@ what the model modules call.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -67,3 +67,16 @@ def conv2d_valid(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """VALID 2D conv, NHWC x HWIO -> NHWC."""
     y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1))
     return y.permute(0, 2, 3, 1)
+
+
+def depthwise_conv2d_valid_nchw(x: torch.Tensor, k2d: torch.Tensor) -> torch.Tensor:
+    """Depthwise VALID conv of (N, C, H, W) with one (kh, kw) kernel shared
+    by every channel (the metric blurs' case), in full float32."""
+    c = x.shape[1]
+    return F.conv2d(x, k2d.to(x.dtype).expand(c, 1, *k2d.shape), groups=c)
+
+
+def reflect_pad_hw_nchw(x: torch.Tensor, pad: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """REFLECT pad (no edge repeat) on H and W of an NCHW tensor."""
+    (ph_lo, ph_hi), (pw_lo, pw_hi) = pad
+    return F.pad(x, (pw_lo, pw_hi, ph_lo, ph_hi), mode='reflect')

@@ -12,6 +12,8 @@ import torch
 from imgcomp_cvpr_tpu_torch.coding import codec, cuda_codec, cuda_kernel as ck, rans
 from imgcomp_cvpr_tpu_torch.coding import planar_codec, planar_kernel as plk
 from imgcomp_cvpr_tpu_torch.models import probclass as pcl
+from imgcomp_cvpr_tpu_torch.models import quantizer as quantizer_lib
+from imgcomp_cvpr_tpu_torch.training import trainer as trainer_lib
 from imgcomp_cvpr_tpu_torch.ops.kernels import build, quantize as qk
 from imgcomp_cvpr_tpu_torch.utils import config as config_lib
 
@@ -218,3 +220,107 @@ def test_planar_streams_batch_invariant(cuda_device):
         assert lc.encode_batch(syms[i:i + 1], centers)[0].bitstream == res[i].bitstream
         dec = lc.decode_batch([res[i].bitstream], centers)
         assert torch.equal(dec[0].long(), syms[i].long())
+
+
+# ---------------------------------------------------------------------------
+# Training (kernel 7)
+# ---------------------------------------------------------------------------
+
+def _bwd_inputs(device, shape, num_centers=6, seed=0):
+    rng = np.random.RandomState(seed)
+    mk = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    return (mk(rng.randn(*shape) * 2), mk(np.sort(rng.uniform(-2, 2, num_centers))),
+            mk(rng.randn(*shape)), mk(rng.randn(*shape)))
+
+
+@pytest.mark.parametrize('shape,num_centers', [
+    ((30, 20, 20, 32), 6), ((3, 17, 29, 5), 6), ((7,), 6),
+    ((3, 17, 29, 5), 8), ((3, 17, 29, 5), 9), ((3, 17, 29, 5), 32)])  # both template widths
+@pytest.mark.parametrize('use_g,use_gh', [(True, True), (True, False), (False, True)])
+def test_quantize_bwd_kernel_matches_plain(cuda_device, shape, num_centers, use_g, use_gh):
+    """Kernel 7 against its plain version in float32 and float64; absent
+    cotangents go in as null pointers; two launches give bit-equal sums."""
+    x, c, g, gh = _bwd_inputs(cuda_device, shape, num_centers)
+    g, gh = (g if use_g else None), (gh if use_gh else None)
+    before = build.LAUNCHES['quantize_bwd']
+    dx, dc = qk.quantize_bwd(x, c, g, gh)
+    assert build.LAUNCHES['quantize_bwd'] == before + 1
+    dx2, dc2 = qk.quantize_bwd(x, c, g, gh)
+    torch.cuda.synchronize()
+    assert torch.equal(dc, dc2) and torch.equal(dx, dx2)
+    px, pc_ = qk.quantize_bwd_plain(x, c, g, gh)
+    d = lambda t: None if t is None else t.double()
+    rx, rc = qk.quantize_bwd_plain(x.double(), c.double(), d(g), d(gh))
+    # expf vs torch.exp and FMA contraction on |dx| <~ 10, with cancelling terms.
+    assert (dx - px).abs().max().item() <= 1e-5 * max(1.0, px.abs().max().item())
+    assert (dx.double() - rx).abs().max().item() <= 1e-5 * max(1.0, rx.abs().max().item())
+    # Sums of up to 384,000 terms: the kernel's tree is held to the float64
+    # referee at 2e-5 of the sum of the terms' magnitudes.
+    n = x.numel()
+    scale = max(1.0, float(n) ** 0.5)
+    assert (dc.double() - rc).abs().max().item() <= 2e-5 * scale
+    assert (dc - pc_).abs().max().item() <= 4e-5 * scale
+
+
+def test_quantize_under_autograd_reaches_the_encoder(cuda_device):
+    """quantize() on a CUDA tensor is differentiable: kernel 1 forward and
+    kernel 7 backward under QuantizeFn give x and the centers the gradients
+    the plain pair gives on the CPU."""
+    x, c, _, _ = _bwd_inputs(cuda_device, (2, 8, 8, 4), seed=1)
+
+    def grads(xv, cv):
+        xv, cv = xv.clone().requires_grad_(), cv.clone().requires_grad_()
+        out = quantizer_lib.quantize(xv, cv)
+        ((out.qbar * torch.cos(out.qbar)).sum() + (out.qsoft ** 2).sum()
+         + (out.qhard ** 2).sum()).backward()
+        return xv.grad, cv.grad
+
+    build.reset_launches()
+    gx, gc = grads(x, c)
+    assert build.LAUNCHES['quantize'] == 1 and build.LAUNCHES['quantize_bwd'] == 1
+    assert gx is not None and gx.abs().max().item() > 0
+    cx, cc = grads(x.cpu(), c.cpu())
+    assert (gx.cpu() - cx).abs().max().item() <= 1e-5
+    # sums of 512 terms of magnitude ~1e2-1e3: relative to the largest
+    assert (gc.cpu() - cc).abs().max().item() <= 1e-5 * cc.abs().max().item()
+
+
+def test_full_model_step_kernel_vs_plain_gradients(cuda_device, monkeypatch):
+    """One forward + backward of a small model on the card with kernel 7,
+    and one with the plain backward on the same weights and batch."""
+    ae_cfg, _ = config_lib.parse_spec('cvpr/low', 'ae')
+    pc_cfg, _ = config_lib.parse_spec('cvpr/res_shallow', 'pc')
+    ae_cfg = ae_cfg.replace(arch_param_B=1, num_chan_bn=8, batch_size=4, crop_size=(64, 64))
+    t = trainer_lib.Trainer(ae_cfg, pc_cfg.replace(arch_param__k=8), device=cuda_device)
+    state = t.init_state(0)
+    batch = (np.random.RandomState(0).rand(4, 64, 64, 3) * 255).astype(np.uint8)
+    snapshot = {k: v.clone() for k, v in state.ae.state_dict().items()}
+
+    def grads():
+        state.ae.load_state_dict(snapshot)       # the forward moves the BN statistics
+        state.optimizer.zero_grad()
+        total, _ = t.loss_fn(state, batch)
+        total.backward()
+        return {n: p.grad.clone() for n, p in
+                list(state.ae.named_parameters()) + list(state.pc.named_parameters())}
+
+    # cuDNN's default backward algorithms sum in an order that changes from
+    # run to run (two runs of the same code part by more than the tolerance
+    # below on some leaves); with its deterministic ones what differs is
+    # the quantizer's backward alone.
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        build.reset_launches()
+        g_kernel = grads()
+        assert build.LAUNCHES['quantize_bwd'] == 1
+        monkeypatch.setattr(qk, 'quantize_bwd', qk.quantize_bwd_plain)
+        g_plain = grads()
+    finally:
+        torch.backends.cudnn.deterministic = was
+    assert build.LAUNCHES['quantize_bwd'] == 1
+    assert g_kernel['encoder.h1.weight'].abs().max().item() > 0
+    for n in g_kernel:
+        scale = g_plain[n].abs().max().item()
+        # the kernel's roundings (expf, FMA contraction, its summation tree)
+        assert (g_kernel[n] - g_plain[n]).abs().max().item() <= 1e-3 * scale + 1e-12, n

@@ -2,7 +2,9 @@
 
 A subprocess installs a meta-path finder that refuses ``jax``, ``jaxlib``
 and ``imgcomp_cvpr_tpu`` (not ``imgcomp_cvpr_tpu_torch``), then imports every
-module of the port and ``chip_smoke``; any such import raises there.
+module of the port (the training modules included), ``chip_smoke`` and
+``train_torch``; any such import raises there. ``flax``, ``optax`` and
+``orbax`` are refused too.
 """
 
 import os
@@ -15,24 +17,31 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GUARD = textwrap.dedent('''
     import importlib, pkgutil, sys
 
+    BANNED = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'imgcomp_cvpr_tpu')
+
     class Refuse:
         def find_spec(self, name, path=None, target=None):
             top = name.split('.')[0]
-            if top in ('jax', 'jaxlib', 'imgcomp_cvpr_tpu'):
+            if top in BANNED:
                 raise ImportError('the port must not import ' + name)
             return None
 
     for mod in list(sys.modules):
-        if mod.split('.')[0] in ('jax', 'jaxlib', 'imgcomp_cvpr_tpu'):
+        if mod.split('.')[0] in BANNED:
             del sys.modules[mod]
     sys.meta_path.insert(0, Refuse())
     import imgcomp_cvpr_tpu_torch as pkg
-    mods = ['chip_smoke', 'imgcomp_cvpr_tpu_torch']
+    mods = ['chip_smoke', 'train_torch', 'imgcomp_cvpr_tpu_torch']
     mods += [m.name for m in pkgutil.walk_packages(pkg.__path__, 'imgcomp_cvpr_tpu_torch.')]
     for m in mods:
         importlib.import_module(m)
-    bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'imgcomp_cvpr_tpu'))
+    bad = sorted(m for m in sys.modules if m.split('.')[0] in BANNED)
     assert not bad, bad
+    for m in ('training.trainer', 'training.train_loop', 'training.checkpoint',
+              'training.optimizers', 'training.losses', 'training.distortions',
+              'data.pipeline', 'ops.msssim', 'ops.metrics', 'ops.bits', 'utils.logger',
+              'utils.logdir'):
+        assert 'imgcomp_cvpr_tpu_torch.' + m in mods, m
     print(len(mods), 'modules')
 ''')
 
@@ -43,4 +52,4 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     n = int(out.stdout.split()[-2])
-    assert n >= 15, out.stdout
+    assert n >= 35, out.stdout
