@@ -14,17 +14,22 @@ Phases, one line each:
      the quantizer forward, kernel 1, at both: the codec's z here and the
      training forward's own z in phase 6a);
      The planar kernels 5 and 6 (context model ``pc base``: K=5, kf=24,
-     seeded weights) run over the whole volume; kernel 5 is held against
-     its plain version on one plane (plane 2, whose bias rows come from two
-     coded planes): the plain version's Python loop over 824 steps would
-     not fit the time limit for all 32 planes;
+     seeded weights) run over the whole volume; kernel 5's layer-parallel
+     encode is held against its plain version and against its own
+     teacher-forced scan on all 32 planes, its scan against the scan's
+     plain version on one plane (plane 2, whose bias rows come from two
+     coded planes: that Python loop over 824 steps takes ~20 s a plane).
+     Kernel 2's layer-parallel encode likewise equals its scan on every
+     entry; decode is timed with the image over clusters of 8 and of 1
+     blocks; both codecs decode B = 1, 3 and 17 images and write the same
+     streams at B = 3 as at B = 1;
   4. the K=3 main path: B=16 natural-statistics 512x768 images with the
      trained model (assets/demo_trained_low_9000.npz): AE encode ->
-     kernel 2 encode -> kernel 3 -> container serialize -> parse -> kernel 2
+     kernel 2 encode (layer-parallel) -> kernel 3 -> container serialize -> parse -> kernel 2
      decode -> AE decode, CRC-verified bit-exact, with per-leg times;
   5. the K=5 main path: the same images through the trained AE and the
-     seeded K=5 context model: AE encode -> per plane bias rows + kernel 5
-     encode -> kernel 6 -> container (impl id 6) -> parse -> per plane
+     seeded K=5 context model: AE encode -> per level bias rows + kernel 5
+     encode (5 launches) -> kernel 6 -> container (impl id 6) -> parse -> per plane
      kernel 5 decode -> device CRC -> AE decode, bit-exact, with leg times;
   6. the training path at full width (ae cvpr/low + pc cvpr/res_shallow,
      B=30 160x160 crops of synthetic:64, seeded weights): kernel 1 against
@@ -50,6 +55,7 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
+FADD_LATENCY_CLOCKS = 4         # dependent f32 add to add, Hopper
 ASSET = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'assets',
                      'demo_trained_low_9000.npz')
 BATCH, IMG_H, IMG_W = 16, 512, 768
@@ -105,13 +111,43 @@ def host_ms(fn):
     return (time.time() - t) * 1e3, out
 
 
-def planar_kernels(dev, syms, centers, pc5, pc5_config, rows):
+def chain_floor_ms(adds_per_step, steps, sm_mhz):
+    """The least a scan can take on one image with today's summation order:
+    its dependent adds at the card's add latency and top SM clock."""
+    return adds_per_step * steps * FADD_LATENCY_CLOCKS / (sm_mhz * 1e3)
+
+
+def library_logits_ms(pc, centers, syms):
+    """ms of the port's own ProbClassifier.logits (F.conv3d chain, f32, TF32
+    off) on the same symbols, one image a call as the codecs' convolutions
+    run: the one PyTorch call chain that computes the kernels' logits. It
+    stops there: no CDF, no selection of the coded symbol's entry. The codec
+    path never calls it."""
+    import torch
+    from imgcomp_cvpr_tpu_torch.models import probclass as pc_lib
+    if torch.backends.cudnn.allow_tf32:
+        raise AssertionError('TF32 convolutions are on')
+    pad = float(pc_lib.auto_pad_value(pc.config, centers, pc))
+    q = centers[syms.long()].permute(0, 2, 3, 1).contiguous()
+
+    def run():
+        with torch.no_grad():
+            for i in range(q.shape[0]):
+                pc.logits(q[i:i + 1], pad)
+
+    return cuda_ms(run, 2)
+
+
+def planar_kernels(dev, syms, centers, pc5, pc5_config, rows, sm_mhz):
     """Phase 3 for kernels 5 and 6 at the main path's shapes (B=16, latent
-    (32, 64, 96), K=5). Kernel 5 runs every plane; it is held against its
-    plain version on plane P = 2 in both modes. Adds rows to ``rows``."""
+    (32, 64, 96), K=5). The layer-parallel encode is held against its plain
+    version and against the teacher-forced scan on every plane; the scan is
+    held against its own plain version on plane P = 2 in both modes. Adds
+    rows to ``rows``."""
     import torch
     from imgcomp_cvpr_tpu_torch.coding import planar, planar_codec
     from imgcomp_cvpr_tpu_torch.coding import planar_kernel as plk
+    from imgcomp_cvpr_tpu_torch.ops.kernels import build
     P = 2
     B, C, H, W = syms.shape
     shape = (C, H, W)
@@ -119,8 +155,41 @@ def planar_kernels(dev, syms, centers, pc5, pc5_config, rows):
     sched, fold = coder._prepare(shape, centers)
     K, kf, L = coder.K, fold.top.w1.shape[-1], coder.L
     syms = syms.int().contiguous()
+    act = torch.from_numpy(sched.idx_cm < H * W).to(dev)
+    entries = int(act.sum().item()) * B
 
-    # Encode every plane through kernel 5; keep plane P's inputs.
+    # The layer-parallel encode, with each of its kernel launches timed.
+    spans = []
+
+    def timed(fn):
+        def run(*a, **k):
+            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev[0].record()
+            out = fn(*a, **k)
+            ev[1].record()
+            spans.append(ev)
+            return out
+        return run
+
+    kernel_calls = plk.level_forward, plk.plane_tables
+    plk.level_forward, plk.plane_tables = timed(plk.level_forward), timed(plk.plane_tables)
+    try:
+        coder.encode_tables(syms, fold)                       # warm-up
+        spans.clear()
+        before = build.LAUNCHES['plane_forward_encode']
+        all_ms, (fsel_par, ssel_par) = host_ms(lambda: coder.encode_tables(syms, fold))
+        n_par = build.LAUNCHES['plane_forward_encode'] - before
+    finally:
+        plk.level_forward, plk.plane_tables = kernel_calls
+    par_ms = [a.elapsed_time(b) for a, b in spans]
+    if n_par != 5 or len(par_ms) != 5:
+        raise AssertionError(f'plane forward encode: {n_par} kernel-5 launches a batch')
+    enc_plain_ms, (f_pl, s_pl) = host_ms(lambda: coder.encode_tables(syms, fold, plain=True))
+    flips_all = int(((fsel_par != f_pl) | (ssel_par != s_pl)).sum().item())
+    if flips_all > 1e-3 * entries * C:
+        raise AssertionError(f'plane forward encode: {flips_all} flips vs plain')
+
+    # The teacher-forced scan over every plane (the oracle); keep plane P's inputs.
     hist = coder._history(fold, sched, B)
     fsel = torch.empty(B, C, sched.T2, planar.R, dtype=torch.int32, device=dev)
     ssel = torch.empty_like(fsel)
@@ -132,37 +201,49 @@ def planar_kernels(dev, syms, centers, pc5, pc5_config, rows):
             bias_p, out_p = bias, out
         fsel[:, d], ssel[:, d] = out.fsel, out.ssel
         coder._push(hist, out)
+    if not (torch.equal(fsel.reshape(B, -1, planar.R), fsel_par)
+            and torch.equal(ssel.reshape(B, -1, planar.R), ssel_par)):
+        raise AssertionError('plane forward encode: layer-parallel tables differ from '
+                             'the scan\'s mode-1 tables')
     true_p = syms[:, P].contiguous()
     plain_ms, op = host_ms(lambda: plk.plane_forward_plain(
         plk.MODE_ENCODE, fold.top, shape, K, bias_p, true_plane=true_p))
-    act = torch.from_numpy(sched.idx_cm < H * W).to(dev)
     flips = int((((out_p.fsel != op.fsel) | (out_p.ssel != op.ssel)) & act).sum().item())
-    entries = int(act.sum().item()) * B
     if flips > 1e-3 * entries:
         raise AssertionError(f'plane forward encode: {flips} flips > 0.1% of {entries}')
     act_err = max((a - b).abs().max().item()
                   for a, b in zip(out_p.acts + (out_p.q,), op.acts + (op.q,)))
     if act_err > 1e-5:
         raise AssertionError(f'plane forward encode: activations max abs err {act_err}')
-    # Per launch (one plane of B images): top-slice tap products of every
-    # level cell; bias rows and true symbols read, activations, q plane and
-    # (freq, start) tables written.
+    # Per plane of B images: top-slice tap products of every level cell;
+    # bias rows and true symbols read, activations, q plane and (freq,
+    # start) tables written. The encode does all C planes in its 5 launches:
+    # its row gives the mean over them, a fifth of the batch's.
     cells = [g[0] * g[1] for g in sched.grids]
     flops = 2 * B * sum(cells[l + 1] * len(sched.taps[l]) * (1 if l == 0 else kf)
                         * (L if l == 3 else kf) for l in range(4))
     io = 4 * B * (sum(cells[1:4]) * kf * 2 + cells[4] * L + cells[0])
     enc_bytes = io + 4 * B * (H * W + 2 * sched.T2 * planar.R)
+    scan_enc_ms = cuda_ms(lambda: plk.plane_forward(plk.MODE_ENCODE, fold.top, shape, K,
+                                                    bias_p, true_plane=true_p), 3)
+    lib_ms = library_logits_ms(pc5, centers, syms)
     rows['plane_forward_encode'] = dict(
         route='cuda', source='imgcomp_cvpr_tpu_torch/csrc/plane_forward.cu',
         replaces='imgcomp_cvpr_tpu/coding/planar_kernel.py:393',
-        max_abs_err=act_err,
-        ms=cuda_ms(lambda: plk.plane_forward(plk.MODE_ENCODE, fold.top, shape, K,
-                                             bias_p, true_plane=true_p), 3),
-        plain_ms=plain_ms, bound=bound(enc_bytes, flops), library_ms=None)
-    print(f'[3 plane forward encode] K=5 latent {shape}: all {C} planes through '
-          f'kernel 5; plane {P} vs plain (cut: one plane, the plain loop takes '
-          f'{plain_ms / 1e3:.1f} s a plane): {flips} boundary flips of {entries} '
-          f'active entries (tol 0.1%), activations max abs err {act_err:.3g}',
+        max_abs_err=float((fsel_par - f_pl).abs().max().item()),
+        ms=sum(par_ms) / 5, plain_ms=enc_plain_ms / 5,
+        bound=bound(C * enc_bytes / 5, C * flops / 5), library_ms=lib_ms / 5)
+    print(f'[3 plane forward encode] K=5 latent {shape}: layer-parallel encode of all {C} '
+          f'planes in {n_par} kernel-5 launches, ms {[round(t, 3) for t in par_ms]} (levels '
+          f'1-4, tables) = {sum(par_ms):.3f} of the {all_ms:.1f} ms encode_tables takes with '
+          f'its {4 * C * B} bias-row convolutions; tables equal to the teacher-forced '
+          f'scan\'s on all {C} planes ({fsel_par.numel()} entries); vs the plain '
+          f'layer-at-a-time version on all planes ({enc_plain_ms / 1e3:.1f} s): {flips_all} '
+          f'flips of {entries * C} active entries (tol 0.1%); the scan ({scan_enc_ms:.3f} ms '
+          f'a plane) vs its plain loop on plane {P} ({plain_ms / 1e3:.1f} s): {flips} flips '
+          f'of {entries}, activations max abs err {act_err:.3g}; ProbClassifier.logits '
+          f'(F.conv3d, f32, TF32 off, logits only: no CDF, no selection) on the same '
+          f'symbols {lib_ms:.3f} ms a batch; the row gives a fifth of the batch\'s times',
           flush=True)
 
     fsel = fsel.reshape(B, -1, planar.R)
@@ -222,10 +303,19 @@ def planar_kernels(dev, syms, centers, pc5, pc5_config, rows):
         plain_ms=dplain_ms,
         bound=bound(io + 4 * B * H * W + words_p + 16 * B * planar.R, flops),
         library_ms=None)
+    adds = len(sched.taps[0]) + sum(len(tp) for tp in sched.taps[1:]) * kf
+    prof = torch.zeros(B, 5, dtype=torch.int64, device=dev)
+    plk.plane_forward(plk.MODE_DECODE, fold.top, shape, K, bias_d, prof=prof, **args_p)
+    clocks = (prof.double().mean(0) / sched.T2).round().long().tolist()
     print(f'[3 plane forward decode] kernel 5 recovers all {C} planes from kernel '
           f'6\'s streams (tail-packed, per-plane thresholds); the plain version '
           f'decodes plane {P} from the same state to the same symbols, state and '
-          f'read pointer', flush=True)
+          f'read pointer; {rows["plane_forward_decode"]["ms"]:.3f} ms a plane launch; '
+          f'clocks a step, mean over the images (levels 1-4 each with its barrier, CDF + '
+          f'rANS): {clocks}; '
+          f'chain floor {chain_floor_ms(adds, sched.T2, sm_mhz):.3f} ms a launch ({adds} '
+          f'dependent adds a step x {sched.T2} steps x {FADD_LATENCY_CLOCKS} clocks at '
+          f'{sm_mhz} MHz)', flush=True)
 
 
 def quantize_bwd_kernel(dev, trained_centers, rows):
@@ -557,12 +647,16 @@ def main():
 
     dev = torch.device('cuda')
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True, text=True,
-                         timeout=60).stdout.strip().splitlines()[0]
+    def nvidia_smi(query):
+        return subprocess.run(['nvidia-smi', f'--query-gpu={query}', '--format=csv,noheader'],
+                              capture_output=True, text=True,
+                              timeout=60).stdout.strip().splitlines()[0]
+
+    smi = nvidia_smi('name,power.limit')
     print(smi, flush=True)
-    print(f'[1 device] torch: {kind}; nvidia-smi: {smi}; torch {torch.__version__} '
-          f'cuda {torch.version.cuda}', flush=True)
+    sm_mhz = int(nvidia_smi('clocks.max.sm').split()[0])
+    print(f'[1 device] torch: {kind}; nvidia-smi: {smi}, top SM clock {sm_mhz} MHz; torch '
+          f'{torch.__version__} cuda {torch.version.cuda}', flush=True)
 
     t0 = time.time()
     logs = build.build_all()
@@ -620,23 +714,38 @@ def main():
     fwd_flops = 2 * macs * BATCH
     act = torch.from_numpy(sched.idx_cm < n).to(dev)
     f_k, s_k = ck.wavefront_forward(ck.MODE_ENCODE, fw, shape, true_syms=syms_flat)
-    enc_plain_ms, (f_p, s_p) = host_ms(lambda: ck.wavefront_forward_plain(
-        ck.MODE_ENCODE, fw, shape, true_syms=syms_flat))
+    f_s, s_s = ck.wavefront_forward(ck.MODE_ENCODE, fw, shape, true_syms=syms_flat, scan=True)
+    if not (torch.equal(f_k, f_s) and torch.equal(s_k, s_s)):
+        raise AssertionError('forward encode: layer-parallel tables differ from the '
+                             'scan\'s mode-1 tables')
+    enc_plain_ms, (f_p, s_p) = host_ms(lambda: ck.wavefront_encode_plain(
+        fw, shape, syms_flat))
     flips = int((((f_k != f_p) | (s_k != s_p)) & act).sum().item())
     entries = int(act.sum().item()) * BATCH
     if flips > 1e-3 * entries:
         raise AssertionError(f'forward encode: {flips} flips > 0.1% of {entries}')
     table_bytes = 2 * 4 * BATCH * sched.T * sched.CQ
+    kf3, L3 = fw.w2.shape[-1], fw.w4.shape[-1]
+    chosen = ck.scan_cluster(kf3, L3, sched.CQ, sched.T, BATCH)
+    scan_enc = {c: cuda_ms(lambda: ck.wavefront_forward(
+        ck.MODE_ENCODE, fw, shape, true_syms=syms_flat, scan=True, cluster=c))
+        for c in (chosen, 1)}
+    lib3_ms = library_logits_ms(pc, centers, syms)
     rows['wavefront_forward_encode'] = dict(
         route='cuda', source='imgcomp_cvpr_tpu_torch/csrc/wavefront_forward.cu',
         replaces='imgcomp_cvpr_tpu/coding/pallas_kernel.py:1089',
         max_abs_err=float(((f_k - f_p).abs() * act).max().item()),
         ms=cuda_ms(lambda: ck.wavefront_forward(ck.MODE_ENCODE, fw, shape,
-                                                true_syms=syms_flat)),
+                                                true_syms=syms_flat), 3),
         plain_ms=enc_plain_ms,
-        bound=bound(4 * BATCH * n + table_bytes, fwd_flops), library_ms=None)
-    print(f'[3 forward encode] tables: {flips} boundary flips of {entries} active '
-          f'entries (tol 0.1%)', flush=True)
+        bound=bound(4 * BATCH * n + table_bytes, fwd_flops), library_ms=lib3_ms)
+    print(f'[3 forward encode] layer-parallel tables (5 launches, '
+          f'{rows["wavefront_forward_encode"]["ms"]:.3f} ms) equal to the scan\'s mode-1 '
+          f'tables on all {f_k.numel()} entries (scan: {scan_enc[chosen]:.3f} ms over clusters '
+          f'of {chosen} blocks, {scan_enc[1]:.3f} ms with one block an image); vs the plain '
+          f'layer-at-a-time version: {flips} boundary flips of {entries} active entries '
+          f'(tol 0.1%); ProbClassifier.logits (F.conv3d, f32, TF32 off, logits only: no '
+          f'CDF, no selection) on the same symbols {lib3_ms:.3f} ms', flush=True)
 
     x0 = 1
     w_k, n_k, st_k, k_k = ck.rans_reverse(f_k, s_k, shape, x0)
@@ -675,6 +784,21 @@ def main():
         ck.MODE_DECODE, fw, shape, streams=streams_p, init_states=stp2, thresh=thresh_p))
     if not torch.equal(dec_p, syms_flat):
         raise AssertionError('forward decode: plain version did not recover the symbols')
+    dec_ms = {}
+    for c in (8, 6, 4, 2, 1):
+        out_c = ck.wavefront_forward(ck.MODE_DECODE, fw, shape, streams=streams,
+                                     init_states=st_k, thresh=thresh, cluster=c)
+        if not torch.equal(out_c, syms_flat):
+            raise AssertionError(f'forward decode: cluster of {c} did not recover the symbols')
+        dec_ms[c] = cuda_ms(lambda: ck.wavefront_forward(
+            ck.MODE_DECODE, fw, shape, streams=streams, init_states=st_k, thresh=thresh,
+            cluster=c))
+    occupancy = {c: ck.max_active_clusters(kf3, L3, sched.CQ, sched.T, c)
+                 for c in range(1, ck.MAX_CLUSTER + 1)}
+    prof = torch.zeros(BATCH, 10, dtype=torch.int64, device=dev)
+    ck.wavefront_forward(ck.MODE_DECODE, fw, shape, streams=streams, init_states=st_k,
+                         thresh=thresh, prof=prof)
+    clocks = (prof.double().mean(0) / sched.T).round().long().tolist()
     rows['wavefront_forward_decode'] = dict(
         route='cuda', source='imgcomp_cvpr_tpu_torch/csrc/wavefront_forward.cu',
         replaces='imgcomp_cvpr_tpu/coding/pallas_kernel.py:1089',
@@ -685,14 +809,39 @@ def main():
         plain_ms=dec_plain_ms,
         bound=bound(4 * int(n_k.sum().item()) + 4 * BATCH * n, fwd_flops),
         library_ms=None)
-    print('[3 forward decode] kernel and plain version each recover the teacher '
-          'symbols exactly from their own streams', flush=True)
+    adds3 = 13 + 3 * 14 * kf3
+    print(f'[3 forward decode] kernel (every cluster size) and plain version each recover '
+          f'the teacher symbols exactly from their own streams; ms by blocks an image: '
+          f'{ {c: round(t, 3) for c, t in dec_ms.items()} } (the path takes {chosen} for '
+          f'B={BATCH}: the largest cluster of which the card holds {BATCH} at once; '
+          f'cudaOccupancyMaxActiveClusters by cluster size: {occupancy}); clocks a step on '
+          f'clusters of {chosen}, mean over the images (layer 1, barrier, layer 2, barrier, '
+          f'layer 3, barrier, layer 4, barrier, CDF + rANS, barrier): {clocks}; chain floor {chain_floor_ms(adds3, sched.T, sm_mhz):.3f} ms '
+          f'({adds3} dependent adds a step x {sched.T} steps x {FADD_LATENCY_CLOCKS} clocks '
+          f'at {sm_mhz} MHz)', flush=True)
 
     pc5_config, _ = config_lib.parse_spec('base', 'pc')
     pc5 = pc_lib.init_params(pc_lib.ProbClassifier(pc5_config, ae_config.num_centers,
                                                    device=dev), seed=0)
     lc5 = codec_lib.LatentCodec(pc5, pc5_config, device=dev)
-    planar_kernels(dev, syms, centers, pc5, pc5_config, rows)
+    planar_kernels(dev, syms, centers, pc5, pc5_config, rows, sm_mhz)
+
+    # ---- phase 3b: any batch size, and streams that do not depend on it ----
+    syms17 = torch.cat([syms, syms[:1]])
+    for name, codec in (('K=3', lc), ('K=5', lc5)):
+        streams_b = {}
+        for b in (1, 3, 17):
+            res = codec.encode_batch(syms17[:b], centers)
+            dec_b = codec.decode_batch([r.bitstream for r in res], centers, verify=True)
+            if not torch.equal(dec_b.long(), syms17[:b].long()):
+                raise AssertionError(f'{name}: decode of B={b} did not recover the symbols')
+            streams_b[b] = [r.bitstream for r in res]
+        ones = [codec.encode_batch(syms17[i:i + 1], centers)[0].bitstream for i in range(3)]
+        if streams_b[3] != ones or streams_b[17][:3] != ones or streams_b[1][0] != ones[0]:
+            raise AssertionError(f'{name}: B=3 streams differ from B=1 streams')
+        print(f'[3b batch invariance] {name}: B = 1, 3 and 17 images decode to their '
+              f'symbols (CRC verified); the B=3 (and the first three B=17) streams are '
+              f'byte-identical to B=1 streams', flush=True)
 
     # ---- phases 4 and 5: the main paths through the entry points ---------
     launches = {}
@@ -759,6 +908,8 @@ def main():
         n_launch = launches[phase]['quantize' if name == 'quantize_train' else name]
         if n_launch < 1 or (name == 'quantize' and launches[5][name] < 1):
             raise AssertionError(f'kernel {name} was not launched on main path {phase}')
+        if name == 'plane_forward_encode' and n_launch > 5:
+            raise AssertionError(f'kernel 5 encode took {n_launch} launches a batch')
         r = rows[name]
         b_ms, b_by = r.pop('bound')
         kernels.append(dict(name=name, route=r['route'], source=r['source'],

@@ -1,11 +1,12 @@
 """Driver of the K=3 wavefront codec on the card (counterpart of
 imgcomp_cvpr_tpu/coding/pallas_codec.py::PallasCoder, bsub=1, f32).
 
-encode: teacher-forced kernel 2 -> per-symbol (freq, start) -> kernel 3
-reverse rANS (x0 = 1 tail packing; a lane whose warmup exceeds K_CAP sends
-the batch back through kernel 3 with x0 = RANS_L) -> container v11.
-decode: parse -> kernel 2 decode with per-lane thresh = lane_totals - k ->
-CRC checked on the device. The symbol checksum and the theoretical bits are
+encode: kernel 2's layer-parallel teacher-forced entry -> per-symbol (freq,
+start) -> kernel 3 reverse rANS (x0 = 1 tail packing; a lane whose warmup
+exceeds K_CAP sends the batch back through kernel 3 with x0 = RANS_L) ->
+container v11. decode: parse -> kernel 2's scan (one image over a
+thread-block cluster) with per-lane thresh = lane_totals - k -> CRC checked
+on the device. The symbol checksum and the theoretical bits are
 computed on the device; only the stream words, states and a few scalars
 per image cross to the host.
 """

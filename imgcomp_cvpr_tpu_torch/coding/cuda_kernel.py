@@ -22,19 +22,23 @@ the pad value. The host precomputes, per layer, the cells of every step
 (``ptr``/``cells``) and every cell's source index per unmasked tap
 (``taps``): a source of row G (one past the grid) is the constant row.
 
-Kernel 2 (csrc/wavefront_forward.cu, one block per image) runs the steps
-in order: layer 1..4 cells of step t, then the step's rANS lanes; mode 1
-(encode) reads teacher symbols and writes per-symbol (freq, start), mode 0
-(decode) runs the sequential 32-lane interleaved rANS decode. Both modes
-compute logits and CDFs with the same code. Kernel 3 (csrc/rans_reverse.cu,
-one warp per image) is the reverse interleaved rANS encoder.
+Kernel 2 (csrc/wavefront_forward.cu) has two entries. The encode entry is
+layer-parallel: all symbols are known, so every cell of a layer depends only
+on the layer below, and one launch per layer covers all cells of all images,
+then one launch writes the per-symbol (freq, start) tables. The scan entry
+runs the steps in order, one image over a thread-block cluster: layer 1..4
+cells of step t, then the step's rANS lanes; mode 0 (decode) runs the
+sequential 32-lane interleaved rANS decode, mode 1 is the teacher-forced
+scan kept as the encode's consistency oracle. All of them compute logits and
+CDFs with the same two device functions. Kernel 3 (csrc/rans_reverse.cu, one
+warp per image) is the reverse interleaved rANS encoder.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -106,6 +110,7 @@ class Schedule(NamedTuple):
     stream_cap: int                # word capacity of one image's stream
     layers: Tuple[LayerCells, ...]  # layers 1..4
     skip: np.ndarray               # (N3,) int32 layer-1 row of each L3 cell
+    slot4: np.ndarray              # (n,) int32 idx_cm column of each L4 cell
 
 
 def _layer_cells(latent_shape, l: int, T: int):
@@ -218,10 +223,18 @@ def build_schedule(latent_shape: Tuple[int, int, int]) -> Schedule:
         layers.append(cells)
         skip = sk if sk is not None else skip
     assert (layers[3].cells[np.argsort(layers[3].cells)] == np.arange(n)).all()
+    # Layer 4's grid is the latent: the column of the step's idx_cm row that
+    # holds each of its cells (the cells are sorted by step).
+    tt, cc = np.nonzero(idx_cm < n)
+    col = np.empty(n, np.int32)
+    col[idx_cm[tt, cc]] = cc
+    slot4 = col[layers[3].cells]
+    step4 = np.repeat(np.arange(T), np.diff(layers[3].ptr))
+    assert (idx_cm[step4, slot4] == layers[3].cells).all()
     return Schedule(latent_shape=latent_shape, T=T, S=S, CQ=CQ,
                     chunk_offs=chunk_offs, idx_cm=idx_cm,
                     stream_cap=(wcap // 128 + 2) * 128,
-                    layers=tuple(layers), skip=skip)
+                    layers=tuple(layers), skip=skip, slot4=slot4)
 
 
 def lane_totals(sched: Schedule) -> np.ndarray:
@@ -242,6 +255,7 @@ class DeviceTables(NamedTuple):
     cells: Tuple[torch.Tensor, ...]   # per layer (N,) int32
     taps: Tuple[torch.Tensor, ...]    # per layer (N, ntaps) int32
     skip: torch.Tensor                # (N3,) int32
+    slot4: torch.Tensor               # (n,) int32
     idx_cm: torch.Tensor              # (T, CQ) int32
 
 
@@ -255,7 +269,8 @@ def device_tables(latent_shape: Tuple[int, int, int], device: str) -> DeviceTabl
     return DeviceTables(ptr=tuple(t(c.ptr) for c in sched.layers),
                         cells=tuple(t(c.cells) for c in sched.layers),
                         taps=tuple(t(c.taps) for c in sched.layers),
-                        skip=t(sched.skip), idx_cm=t(sched.idx_cm))
+                        skip=t(sched.skip), slot4=t(sched.slot4),
+                        idx_cm=t(sched.idx_cm))
 
 
 # ---------------------------------------------------------------------------
@@ -404,18 +419,98 @@ def wavefront_forward_plain(mode: int, weights: FoldedWeights,
     return (out, logits) if return_logits else out
 
 
+_PLAIN_CHUNK_FLOATS = 1 << 25   # gathered (B, cells, taps * cin) floats a chunk
+
+
+def layer_all_cells(src: torch.Tensor, taps: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """_layer_step over every cell of a layer, in chunks of cells (the
+    gathered taps of a whole Kodak-size layer would take gigabytes).
+    taps (N, ntaps) int64 on src's device; b broadcasts against (B, N, cout)
+    or is a per-cell bias (B, N, cout)."""
+    n_cells = taps.shape[0]
+    chunk = max(1, _PLAIN_CHUNK_FLOATS // (src.shape[0] * taps.shape[1] * src.shape[-1]))
+    out = []
+    for a in range(0, n_cells, chunk):
+        bb = b[:, a:a + chunk] if b.dim() == 3 else b
+        out.append(_layer_step(src, taps[a:a + chunk], w, bb))
+    return torch.cat(out, 1)
+
+
+def tables_from_logits(logits: torch.Tensor, idx_cm: torch.Tensor,
+                       true_syms: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """logits (B, n, L), idx_cm (rows, CQ) int64 (n on dead lanes), true_syms
+    (B, n) -> (fsel, ssel) (B, rows, CQ) int32, 0 on dead lanes: the CDF of
+    each live lane's cell and the true symbol's (freq, start)."""
+    B, n, _ = logits.shape
+    rows, CQ = idx_cm.shape
+    fsel = torch.zeros(B, rows, CQ, dtype=torch.int32, device=logits.device)
+    ssel = torch.zeros_like(fsel)
+    true_l = true_syms.long()
+    step = max(1, (1 << 22) // (B * CQ))
+    for a in range(0, rows, step):
+        idx = idx_cm[a:a + step]
+        act = idx < n
+        idx_c = torch.clamp(idx, max=n - 1).reshape(-1)
+        fq, cl = logits_to_cdf(logits[:, idx_c])
+        sym = true_l[:, idx_c][..., None]
+        fs = torch.gather(fq, -1, sym)[..., 0].reshape(B, *idx.shape)
+        ss = torch.gather(cl, -1, sym)[..., 0].reshape(B, *idx.shape)
+        fsel[:, a:a + step] = torch.where(act, fs, 0).int()
+        ssel[:, a:a + step] = torch.where(act, ss, 0).int()
+    return fsel, ssel
+
+
+def wavefront_encode_plain(weights: FoldedWeights, latent_shape: Tuple[int, int, int],
+                           true_syms: torch.Tensor, return_logits: bool = False):
+    """Plain PyTorch version of kernel 2's layer-parallel encode: all cells
+    of layer 1, then 2, 3, 4 through _layer_step (each output the same chain
+    of roundings as in the step-ordered plain version, so the tables are
+    equal to its), then the CDFs of all (T, CQ) lanes. true_syms (B, n) int
+    -> (freq_sel, start_sel) (B, T, CQ) int32, 0 on dead lanes."""
+    sched = build_schedule(latent_shape)
+    dev = weights.w1.device
+    tabs = device_tables(sched.latent_shape, str(dev))
+    B = true_syms.shape[0]
+    src = torch.cat([weights.centers[true_syms.long()],
+                     weights.pad.expand(B, 1)], 1)[:, :, None]
+    layer_w = ((weights.w1, weights.b1), (weights.w2, weights.b2),
+               (weights.w3, weights.b3), (weights.w4, weights.b4))
+    consts = (weights.k1, weights.k2, weights.k3)
+    act1 = None
+    for li in range(4):
+        y = layer_all_cells(src, tabs.taps[li].long(), *layer_w[li])
+        if li == 2:
+            y = y + act1[:, tabs.skip.long()]
+        else:
+            y = torch.relu(y)
+        if li == 3:
+            logits = torch.empty_like(y)
+            logits[:, tabs.cells[3].long()] = y
+            break
+        src = torch.empty(B, sched.layers[li].G + 1, y.shape[-1], dtype=y.dtype, device=dev)
+        src[:, -1] = consts[li]
+        src[:, tabs.cells[li].long()] = y
+        if li == 0:
+            act1 = src
+    out = tables_from_logits(logits, tabs.idx_cm.long(), true_syms)
+    return (out, logits) if return_logits else out
+
+
 class _FwdArgs(ctypes.Structure):
     _fields_ = ([('mode', ctypes.c_int), ('B', ctypes.c_int), ('T', ctypes.c_int),
                  ('n', ctypes.c_int), ('kf', ctypes.c_int), ('L', ctypes.c_int),
                  ('CQ', ctypes.c_int), ('cap', ctypes.c_int),
                  ('G1', ctypes.c_int), ('G2', ctypes.c_int), ('G3', ctypes.c_int),
+                 ('cluster', ctypes.c_int), ('N1', ctypes.c_int), ('N2', ctypes.c_int),
+                 ('N3', ctypes.c_int), ('N4', ctypes.c_int),
                  ('params', ctypes.c_void_p)]
                 + [(f'{k}{l}', ctypes.c_void_p) for l in range(1, 5)
                    for k in ('ptr', 'cells', 'taps')]
                 + [(k, ctypes.c_void_p) for k in (
-                    'skip3', 'idx_cm', 'act1', 'act2', 'act3', 'logits', 'qbuf',
+                    'skip3', 'slot4', 'idx_cm', 'act1', 'act2', 'act3', 'logits', 'qbuf',
                     'true_syms', 'fsel', 'ssel', 'streams', 'init_states',
-                    'thresh', 'syms_out')])
+                    'thresh', 'syms_out', 'prof')])
 
 
 def _check_cuda(name, t, dtype, shape, device):
@@ -426,16 +521,28 @@ def _check_cuda(name, t, dtype, shape, device):
         raise ValueError(f'{name} must be contiguous')
 
 
+MAX_CLUSTER = 8  # blocks an image in the scan: the portable cluster limit
+
+
 def wavefront_forward(mode: int, weights: FoldedWeights,
                       latent_shape: Tuple[int, int, int], *, true_syms=None,
-                      streams=None, init_states=None, thresh=None):
+                      streams=None, init_states=None, thresh=None,
+                      scan: bool = False, cluster: Optional[int] = None, prof=None):
     """Kernel 2 wrapper. Same contract as wavefront_forward_plain (without
-    return_logits); a CPU tensor runs the plain version, a CUDA tensor
-    launches csrc/wavefront_forward.cu."""
+    return_logits). Encode (mode 1) takes the layer-parallel entry, or with
+    ``scan`` the step-ordered scan (its consistency oracle: the tables are
+    equal); decode (mode 0) is the scan, one image over ``cluster`` blocks
+    (default: the largest cluster at which the whole batch runs at once).
+    ``prof`` (B, 10) int64 on the device receives the scan's clocks per phase
+    and barrier. A CPU tensor runs the plain versions, a CUDA tensor launches
+    csrc/wavefront_forward.cu."""
     if mode not in (MODE_DECODE, MODE_ENCODE):
         raise ValueError(f'mode must be 0 (decode) or 1 (encode), got {mode}')
+    parallel = mode == MODE_ENCODE and not scan
     dev = weights.w1.device
     if dev.type == 'cpu':
+        if parallel:
+            return wavefront_encode_plain(weights, latent_shape, true_syms)
         return wavefront_forward_plain(mode, weights, latent_shape,
                                        true_syms=true_syms, streams=streams,
                                        init_states=init_states, thresh=thresh)
@@ -466,31 +573,73 @@ def wavefront_forward(mode: int, weights: FoldedWeights,
         _check_cuda('thresh', thresh, i32, (B, R), dev)
         syms = torch.empty(B, n, dtype=i32, device=dev)
         true_syms = fsel = ssel = dummy
+    if cluster is None:
+        cluster = 1 if parallel else scan_cluster(kf, L, sched.CQ, sched.T, B)
+    if not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f'cluster must be in [1, {MAX_CLUSTER}], got {cluster}')
     G = [c.G for c in sched.layers[:3]]
     acts = [torch.empty(B, g + 1, kf, dtype=f32, device=dev) for g in G]
-    logits = torch.empty(B, n, L, dtype=f32, device=dev)
-    qbuf = torch.empty(B, n + 1, dtype=f32, device=dev)
+    for a_l, k in zip(acts, (weights.k1, weights.k2, weights.k3)):
+        a_l[:, -1] = k                        # the all-pad constant rows
+    if parallel:
+        qbuf = torch.cat([weights.centers[true_syms.long()],
+                          weights.pad.expand(B, 1)], 1).contiguous()
+        logits = torch.empty(B, n, L, dtype=f32, device=dev)
+    else:
+        qbuf = torch.empty(B, n + 1, dtype=f32, device=dev)
+        qbuf[:, n] = weights.pad
+        logits = torch.zeros(1, dtype=f32, device=dev)   # stays on the chip
     p = build.ptr
     a = _FwdArgs(mode=mode, B=B, T=sched.T, n=n, kf=kf, L=L, CQ=sched.CQ,
-                 cap=cap, G1=G[0], G2=G[1], G3=G[2], params=p(params),
-                 skip3=p(tabs.skip), idx_cm=p(tabs.idx_cm), act1=p(acts[0]),
+                 cap=cap, G1=G[0], G2=G[1], G3=G[2], cluster=cluster,
+                 N1=len(sched.layers[0].cells), N2=len(sched.layers[1].cells),
+                 N3=len(sched.layers[2].cells), N4=len(sched.layers[3].cells),
+                 params=p(params), skip3=p(tabs.skip), slot4=p(tabs.slot4),
+                 idx_cm=p(tabs.idx_cm), act1=p(acts[0]),
                  act2=p(acts[1]), act3=p(acts[2]), logits=p(logits), qbuf=p(qbuf),
                  true_syms=p(true_syms), fsel=p(fsel), ssel=p(ssel),
                  streams=p(streams), init_states=p(init_states),
-                 thresh=p(thresh), syms_out=p(syms))
+                 thresh=p(thresh), syms_out=p(syms),
+                 prof=None if prof is None else p(prof))
     for l in range(4):
         setattr(a, f'ptr{l + 1}', p(tabs.ptr[l]).value)
         setattr(a, f'cells{l + 1}', p(tabs.cells[l]).value)
         setattr(a, f'taps{l + 1}', p(tabs.taps[l]).value)
-    fn = build.load('wavefront_forward').wavefront_forward
+    lib = build.load('wavefront_forward')
+    fn = lib.wavefront_encode if parallel else lib.wavefront_forward
     fn.argtypes = [_FwdArgs, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         err = fn(a, build.stream_ptr(dev))
-    build.LAUNCHES['wavefront_forward_encode' if mode == MODE_ENCODE
+    build.LAUNCHES['wavefront_forward_encode' if parallel else
+                   'wavefront_forward_encode_scan' if mode == MODE_ENCODE
                    else 'wavefront_forward_decode'] += 1
     build.check(err, 'wavefront_forward')
     return (fsel, ssel) if mode == MODE_ENCODE else syms
+
+
+@functools.lru_cache(maxsize=64)
+def max_active_clusters(kf: int, L: int, CQ: int, T: int, cluster: int) -> int:
+    """cudaOccupancyMaxActiveClusters of the scan kernel: how many images
+    the card scans at once with ``cluster`` blocks an image."""
+    fn = build.load('wavefront_forward').wavefront_max_clusters
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    out = fn(kf, L, CQ, T, cluster)
+    if out < 0:
+        raise RuntimeError(f'cudaOccupancyMaxActiveClusters: cudaError {-out}')
+    return out
+
+
+def scan_cluster(kf: int, L: int, CQ: int, T: int, B: int) -> int:
+    """Blocks an image for a scan of B images: the largest cluster size at
+    which the card holds all B clusters at once (a cluster lies inside one
+    GPC, so an H100 holds 15 clusters of 8 blocks but 17 of 6; a 16th image
+    on clusters of 8 would wait for a second wave), else 1."""
+    for c in range(MAX_CLUSTER, 1, -1):
+        if max_active_clusters(kf, L, CQ, T, c) >= B:
+            return c
+    return 1
 
 
 # ---------------------------------------------------------------------------

@@ -2,19 +2,26 @@
 kernel_size (counterpart of imgcomp_cvpr_tpu/coding/planar_codec.py::
 PlanarCoder at bsub = 1, container precision 0).
 
-Per plane d = 0..C-1: the bias rows of the four layers (the lower kernel
-slices over the kd-1 known planes below d, plus the layer bias), then kernel
-5 over the plane. Planes below 0 are the all-pad constants (pad value for
-q, k1..k3 for the hidden layers). Encode runs kernel 5 teacher-forced and
-then kernel 6 over all (plane, step) rows (x0 = 1 tail packing when the
-longest lane reaches TAIL_MIN_LANE_SYMBOLS; a lane whose warmup exceeds
-K_CAP sends the batch back through kernel 6 with x0 = RANS_L). Decode runs
-kernel 5 plane by plane with the rANS state and read pointer carried across
-planes and the plane's own pull threshold thresh - d * plane_tot, then
-checks the CRC on the device.
+Decode, per plane d = 0..C-1: the bias rows of the four layers (the lower
+kernel slices over the kd-1 known planes below d, plus the layer bias), then
+kernel 5's scan over the plane, with the rANS state and read pointer carried
+across planes and the plane's own pull threshold thresh - d * plane_tot;
+then the CRC is checked on the device. Planes below 0 are the all-pad
+constants (pad value for q, k1..k3 for the hidden layers).
 
-Bias rows are F.conv2d (TF32 off) run one image at a time: every float that
-feeds a CDF is then a fixed function of one image's data, whatever the
+Encode is teacher-forced, so it goes level by level instead: for level l =
+1..4 the bias rows of all C planes (they read level l-1 of the planes below,
+complete after the pass before), then ONE kernel-5 launch over the level's
+cells of all (image, plane) pairs, then one launch for the (freq, start)
+tables: 5 kernel-5 launches a batch, whatever C. Then kernel 6 over all
+(plane, step) rows (x0 = 1 tail packing when the longest lane reaches
+TAIL_MIN_LANE_SYMBOLS; a lane whose warmup exceeds K_CAP sends the batch back
+through kernel 6 with x0 = RANS_L). ``encode_tables_scan`` keeps the
+plane-by-plane teacher-forced scan as the consistency oracle.
+
+Bias rows are F.conv2d (TF32 off) run one image and one plane at a time, on
+the same (1, (kd-1) * cin, H_l, W_l) input in encode and decode: every float
+that feeds a CDF is then a fixed function of one image's data, whatever the
 batch, so a stream decodes alone exactly as it was encoded in a batch.
 """
 
@@ -123,9 +130,53 @@ class PlanarCoder:
 
     # -- encode ---------------------------------------------------------------
 
-    def encode_tables(self, syms: torch.Tensor, fold: PlanarFold):
+    def encode_tables(self, syms: torch.Tensor, fold: PlanarFold, plain: bool = False):
         """(B, C, H, W) int32 symbols -> (fsel, ssel) (B, C*T2, R) int32 in
-        (plane, step) coding order, through kernel 5 in encode mode."""
+        (plane, step) coding order, through kernel 5's layer-parallel encode:
+        per level the bias rows of all planes, then one launch. ``plain``
+        runs the kernel's plain version instead, whatever the device."""
+        level = pk.level_forward_plain if plain else pk.level_forward
+        b, C, H, W = syms.shape
+        latent_shape = (C, H, W)
+        sched = planar.build_planar_schedule(latent_shape, self.K)
+        kd, reach = planar.geometry(self.K)[:2]
+        dev = syms.device
+        q = torch.full((b, C) + sched.grids[0], fold.pad, dtype=torch.float32, device=dev)
+        q[:, :, reach:reach + H, reach:reach + W] = fold.top.centers[syms.long()]
+        src = q.reshape((b * C,) + sched.grids[0])        # the kernel's input
+        below = q[:, :, None]                             # (b, C, ch, Hs, Ws)
+        consts = (torch.full((1,), fold.pad, device=dev),) + fold.consts
+        act1 = None
+        for l in range(4):
+            # Planes d-kd+1 .. d-1 of the level below, the all-pad constants
+            # first: plane d's conv input is a contiguous slice, the same
+            # (1, (kd-1)*ch, Hs, Ws) tensor that decode's bias_rows builds.
+            ch, gs = below.shape[2], sched.grids[l]
+            hist = consts[l][None, None, :, None, None].expand(b, kd - 1, ch, *gs)
+            vol = torch.cat([hist, below], 1)
+            rows = torch.stack([
+                torch.cat([F.conv2d(vol[i, d:d + kd - 1].reshape(1, (kd - 1) * ch, *gs),
+                                    fold.low[l], fold.bias[l]) for i in range(b)])
+                for d in range(C)], 1)                    # (b, C, cout, Hl, Wl)
+            bias = rows.permute(0, 1, 3, 4, 2).reshape((b * C,) + sched.grids[l + 1] + (-1,))
+            out = level(l + 1, fold.top, latent_shape, self.K, src,
+                                   bias.contiguous(), skip=act1 if l == 2 else None)
+            if l == 0:
+                act1 = out
+            src = out
+            if l < 3:
+                below = out.reshape((b, C) + out.shape[1:]).permute(0, 1, 4, 2, 3).contiguous()
+        true = syms.reshape(b * C, H, W).contiguous()
+        if plain:
+            fsel, ssel = pk.plane_tables_plain(out, true, latent_shape, self.K)
+        else:
+            fsel, ssel = pk.plane_tables(fold.top, out, true, latent_shape, self.K)
+        return fsel.reshape(b, -1, planar.R), ssel.reshape(b, -1, planar.R)
+
+    def encode_tables_scan(self, syms: torch.Tensor, fold: PlanarFold):
+        """encode_tables through kernel 5's teacher-forced scan, plane by
+        plane: the consistency oracle of the layer-parallel encode (the
+        tables are equal)."""
         b, C = syms.shape[:2]
         latent_shape = tuple(int(v) for v in syms.shape[1:])
         sched = planar.build_planar_schedule(latent_shape, self.K)

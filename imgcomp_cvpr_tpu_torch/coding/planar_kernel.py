@@ -3,14 +3,19 @@ wavefront, encode and decode) and kernel 6 (reverse interleaved rANS over the
 (plane, step) rows), with their plain PyTorch versions.
 
 Counterpart of imgcomp_cvpr_tpu/coding/planar_kernel.py. Kernel 5
-(csrc/plane_forward.cu, one block per image) codes ONE plane: at step t it
-computes the level 1..4 cells of that step (coding/planar.py) from the
-top-slice taps of the current plane plus the plane's bias rows (the lower
-kernel slices over the known planes, computed by PlanarCoder), then the
-step's band of at most R = 32 symbols as one rANS chunk. Mode 1 (encode) is
-teacher-forced and writes (freq, start) per lane; mode 0 (decode) runs the
-sequential 32-lane rANS decode with the per-plane tail-packing threshold.
-Both modes compute logits and CDFs with the same code (csrc/cdf.cuh).
+(csrc/plane_forward.cu) has a scan and a layer-parallel encode. The scan
+(plane_forward, one block per image) codes ONE plane: at step t it computes
+the level 1..4 cells of that step (coding/planar.py) from the top-slice taps
+of the current plane plus the plane's bias rows (the lower kernel slices
+over the known planes, computed by PlanarCoder), then the step's band of at
+most R = 32 symbols as one rANS chunk. Mode 0 (decode) runs the sequential
+32-lane rANS decode with the per-plane tail-packing threshold; mode 1 is the
+teacher-forced scan, kept as the encode's consistency oracle. The encode
+itself is layer-parallel: the symbols are known, so level l of every plane
+depends only on level l-1, and level_forward computes one level of all
+(image, plane) pairs in one launch, plane_tables the (freq, start) of every
+lane. All compute logits and CDFs with the same code (csrc/layer_sum.cuh,
+csrc/cdf.cuh).
 
 Layer math (ResShallow): conv0 (first mask) -> res conv1 (relu) -> res conv2
 + the same-step level-1 skip (no relu) -> conv_out (relu'd logits); each
@@ -204,24 +209,66 @@ def plane_forward_plain(mode: int, weights: PlaneWeights,
 
 class _PlaneArgs(ctypes.Structure):
     _fields_ = ([(k, ctypes.c_int) for k in (
-        'mode', 'B', 'H', 'W', 'K', 'BH', 'CTR', 'T2', 'kf', 'L', 'cap')]
+        'mode', 'B', 'H', 'W', 'K', 'BH', 'CTR', 'T2', 'kf', 'L', 'cap', 'threads',
+        'level')]
                 + [('nt', ctypes.c_int * 4),
                    ('tdy', (ctypes.c_int * MAX_TAPS) * 4),
                    ('tdx', (ctypes.c_int * MAX_TAPS) * 4)]
                 + [(k, ctypes.c_void_p) for k in (
                     'params', 'bias1', 'bias2', 'bias3', 'bias4', 'act1', 'act2',
-                    'act3', 'qplane', 'true_plane', 'fsel', 'ssel', 'streams',
+                    'act3', 'qplane', 'logits', 'idx_cm', 'true_plane', 'fsel', 'ssel', 'streams',
                     'states_in', 'gptr_in', 'thresh', 'syms_out', 'states_out',
-                    'gptr_out')])
+                    'gptr_out', 'prof')])
+
+
+def _plane_args(weights: PlaneWeights, sched: planar.PlanarSchedule, pairs: int,
+                **fields) -> '_PlaneArgs':
+    """The C argument struct for ``pairs`` planes (images in the scan, (image,
+    plane) pairs in the layer-parallel encode): geometry, tap offsets, packed
+    weights; ``fields`` are tensors (passed as pointers) or ints."""
+    kf, L = weights.w1.shape[-1], weights.w4.shape[-1]
+    if not 2 <= L <= MAX_L:
+        raise ValueError(f'num_centers must be in [2, {MAX_L}], got {L}')
+    if max(len(tp) for tp in sched.taps) > MAX_TAPS:
+        raise ValueError(f'kernel_size {sched.K} has more than {MAX_TAPS} taps per layer')
+    _, H, W = sched.latent_shape
+    params = weights.packed()
+    a = _PlaneArgs(B=pairs, H=H, W=W, K=sched.K, BH=sched.BH, CTR=sched.CTR,
+                   T2=sched.T2, kf=kf, L=L, cap=1, threads=32, level=0,
+                   params=build.ptr(params))
+    a._keep = [params]       # the struct holds raw pointers: keep the owners
+    for k, v in fields.items():
+        if isinstance(v, torch.Tensor):
+            a._keep.append(v)
+            v = build.ptr(v)
+        setattr(a, k, v)
+    for l, tp in enumerate(sched.taps):
+        a.nt[l] = len(tp)
+        for k, (dy, dx) in enumerate(tp):
+            a.tdy[l][k] = dy
+            a.tdx[l][k] = dx
+    return a
+
+
+def _launch(entry: str, a: '_PlaneArgs', dev) -> None:
+    fn = getattr(build.load('plane_forward'), entry)
+    fn.argtypes = [_PlaneArgs, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        err = fn(a, build.stream_ptr(dev))
+    build.check(err, entry)
 
 
 def plane_forward(mode: int, weights: PlaneWeights,
                   latent_shape: Tuple[int, int, int], K: int, bias, *,
                   true_plane=None, streams=None, states=None, gptr=None,
-                  thresh=None) -> PlaneOut:
-    """Kernel 5 wrapper. Same contract as plane_forward_plain (without
-    return_logits); a CPU tensor runs the plain version, a CUDA tensor
-    launches csrc/plane_forward.cu."""
+                  thresh=None, prof=None) -> PlaneOut:
+    """Kernel 5's scan over one plane. Same contract as plane_forward_plain
+    (without return_logits); a CPU tensor runs the plain version, a CUDA
+    tensor launches csrc/plane_forward.cu. Mode 1 is the consistency oracle
+    of the layer-parallel encode (level_forward + plane_tables). ``prof``
+    (B, 5) int64 on the device receives thread 0's clocks in levels 1-4 and
+    in the CDF + rANS part, summed over the steps."""
     if mode not in (MODE_DECODE, MODE_ENCODE):
         raise ValueError(f'mode must be 0 (decode) or 1 (encode), got {mode}')
     dev = weights.w1.device
@@ -234,11 +281,6 @@ def plane_forward(mode: int, weights: PlaneWeights,
     sched = planar.build_planar_schedule(latent_shape, K)
     _, H, W = sched.latent_shape
     kf, L = weights.w1.shape[-1], weights.w4.shape[-1]
-    if not 2 <= L <= MAX_L:
-        raise ValueError(f'num_centers must be in [2, {MAX_L}], got {L}')
-    if max(len(tp) for tp in sched.taps) > MAX_TAPS:
-        raise ValueError(f'kernel_size {K} has more than {MAX_TAPS} taps per layer')
-    params = weights.packed()
     f32, i32 = torch.float32, torch.int32
     B = bias[0].shape[0]
     for l, b in enumerate(bias):
@@ -264,32 +306,127 @@ def plane_forward(mode: int, weights: PlaneWeights,
     acts = [torch.empty(B, g[0], g[1], kf, dtype=f32, device=dev)
             for g in sched.grids[1:4]]
     qp = torch.empty(B, *sched.grids[0], dtype=f32, device=dev)
-    p = build.ptr
-    a = _PlaneArgs(mode=mode, B=B, H=H, W=W, K=K, BH=sched.BH, CTR=sched.CTR,
-                   T2=sched.T2, kf=kf, L=L, cap=cap, params=p(params),
-                   bias1=p(bias[0]), bias2=p(bias[1]), bias3=p(bias[2]),
-                   bias4=p(bias[3]), act1=p(acts[0]), act2=p(acts[1]),
-                   act3=p(acts[2]), qplane=p(qp), true_plane=p(true_plane),
-                   fsel=p(fsel), ssel=p(ssel), streams=p(streams),
-                   states_in=p(states), gptr_in=p(gptr), thresh=p(thresh),
-                   syms_out=p(syms), states_out=p(states_out), gptr_out=p(gptr_out))
-    for l, tp in enumerate(sched.taps):
-        a.nt[l] = len(tp)
-        for k, (dy, dx) in enumerate(tp):
-            a.tdy[l][k] = dy
-            a.tdx[l][k] = dx
-    fn = build.load('plane_forward').plane_forward
-    fn.argtypes = [_PlaneArgs, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        err = fn(a, build.stream_ptr(dev))
-    build.check(err, 'plane_forward')
-    build.LAUNCHES['plane_forward_encode' if mode == MODE_ENCODE
+    # One thread per (cell, channel) of the widest band a step has.
+    band = max(-(-g[1] // sched.BH) for g in sched.grids[1:])
+    threads = min(512, max(64, ck._round_up(min(band, R) * kf, 32)))
+    a = _plane_args(weights, sched, B, mode=mode, cap=cap, threads=threads,
+                    bias1=bias[0], bias2=bias[1], bias3=bias[2], bias4=bias[3],
+                    act1=acts[0], act2=acts[1], act3=acts[2], qplane=qp,
+                    true_plane=true_plane, fsel=fsel, ssel=ssel, streams=streams,
+                    states_in=states, gptr_in=gptr, thresh=thresh, syms_out=syms,
+                    states_out=states_out, gptr_out=gptr_out,
+                    **({} if prof is None else {'prof': prof}))
+    _launch('plane_forward', a, dev)
+    build.LAUNCHES['plane_forward_encode_scan' if mode == MODE_ENCODE
                    else 'plane_forward_decode'] += 1
     acts = tuple(acts)
     if mode == MODE_ENCODE:
         return PlaneOut(acts, qp, fsel=fsel, ssel=ssel)
     return PlaneOut(acts, qp, syms=syms, states=states_out, gptr=gptr_out)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 5, layer-parallel encode: one level of every (image, plane) pair
+# ---------------------------------------------------------------------------
+
+def level_forward_plain(level: int, weights: PlaneWeights,
+                        latent_shape: Tuple[int, int, int], K: int,
+                        src: torch.Tensor, bias: torch.Tensor,
+                        skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of level_forward: every cell of the level
+    through _layer_step (each output the same chain of roundings as in the
+    step-ordered plain version), then the bias row, level 3's skip, ReLU."""
+    layer = plane_layers(tuple(int(v) for v in latent_shape), K)[level - 1]
+    P = src.shape[0]
+    cout = bias.shape[-1]
+    cells = torch.from_numpy(layer.cells).to(src.device)
+    y = ck.layer_all_cells(src.reshape(P, -1, 1 if level == 1 else src.shape[-1]),
+                           layer.taps.to(src.device),
+                           (weights.w1, weights.w2, weights.w3, weights.w4)[level - 1],
+                           bias.reshape(P, -1, cout)[:, cells])
+    if level == 3:
+        y = y + skip.reshape(P, -1, cout)[:, torch.from_numpy(layer.skip).to(src.device)]
+    else:
+        y = torch.relu(y)
+    out = torch.empty_like(y)
+    out[:, cells] = y
+    return out.reshape(bias.shape)
+
+
+def level_forward(level: int, weights: PlaneWeights,
+                  latent_shape: Tuple[int, int, int], K: int, src: torch.Tensor,
+                  bias: torch.Tensor, skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel 5's layer-parallel encode pass: level ``level`` (1..4) of P
+    (image, plane) pairs in one launch. src (P, H_{l-1}, W_{l-1}[, kf]) is
+    the level below (level 0: the padded q planes), bias (P, H_l, W_l, cout)
+    the level's bias rows, skip (level 3 only) the level-1 activations ->
+    (P, H_l, W_l, cout) f32 (level 4: the ReLU'd logits). A CPU tensor runs
+    the plain version, a CUDA tensor launches csrc/plane_forward.cu."""
+    if level not in (1, 2, 3, 4) or (level == 3) != (skip is not None):
+        raise ValueError(f'level {level} with skip {"given" if skip is not None else "absent"}')
+    dev = weights.w1.device
+    if dev.type == 'cpu':
+        return level_forward_plain(level, weights, latent_shape, K, src, bias, skip)
+    if dev.type != 'cuda':
+        raise ValueError(f'level_forward: unsupported device {dev}')
+    sched = planar.build_planar_schedule(latent_shape, K)
+    kf, L = weights.w1.shape[-1], weights.w4.shape[-1]
+    P = src.shape[0]
+    f32 = torch.float32
+    gs, gl = sched.grids[level - 1], sched.grids[level]
+    ck._check_cuda('src', src, f32, (P,) + gs + (() if level == 1 else (kf,)), dev)
+    ck._check_cuda('bias', bias, f32, (P,) + gl + (L if level == 4 else kf,), dev)
+    if skip is not None:
+        ck._check_cuda('skip', skip, f32, (P,) + sched.grids[1] + (kf,), dev)
+    out = torch.empty_like(bias)
+    names = ('qplane', 'act1', 'act2', 'act3', 'logits')
+    fields = {names[level - 1]: src, names[level]: out, f'bias{level}': bias}
+    if skip is not None:
+        fields['act1'] = skip
+    _launch('plane_level', _plane_args(weights, sched, P, level=level, **fields), dev)
+    build.LAUNCHES['plane_forward_encode'] += 1
+    return out
+
+
+def plane_tables_plain(logits: torch.Tensor, true_planes: torch.Tensor,
+                       latent_shape: Tuple[int, int, int], K: int):
+    """Plain PyTorch version of plane_tables (same contract)."""
+    sched = planar.build_planar_schedule(latent_shape, K)
+    idx_cm = torch.from_numpy(sched.idx_cm.astype(np.int64)).to(logits.device)
+    P = logits.shape[0]
+    return ck.tables_from_logits(logits.reshape(P, -1, logits.shape[-1]), idx_cm,
+                                 true_planes.reshape(P, -1))
+
+
+@functools.lru_cache(maxsize=8)
+def _plane_idx_cm(latent_shape, K: int, device: str) -> torch.Tensor:
+    sched = planar.build_planar_schedule(latent_shape, K)
+    return torch.from_numpy(np.ascontiguousarray(sched.idx_cm, np.int32)).to(device)
+
+
+def plane_tables(weights: PlaneWeights, logits: torch.Tensor, true_planes: torch.Tensor,
+                 latent_shape: Tuple[int, int, int], K: int):
+    """Kernel 5's table pass: logits (P, H, W, L) of P (image, plane) pairs
+    and their true symbols (P, H, W) int32 -> (fsel, ssel) (P, T2, R) int32,
+    0 on dead lanes. Plain version on the CPU, csrc/plane_forward.cu on CUDA."""
+    dev = logits.device
+    if dev.type == 'cpu':
+        return plane_tables_plain(logits, true_planes, latent_shape, K)
+    if dev.type != 'cuda':
+        raise ValueError(f'plane_tables: unsupported device {dev}')
+    sched = planar.build_planar_schedule(latent_shape, K)
+    _, H, W = sched.latent_shape
+    P, L = logits.shape[0], logits.shape[-1]
+    ck._check_cuda('logits', logits, torch.float32, (P, H, W, L), dev)
+    ck._check_cuda('true_planes', true_planes, torch.int32, (P, H, W), dev)
+    fsel = torch.empty(P, sched.T2, R, dtype=torch.int32, device=dev)
+    ssel = torch.empty_like(fsel)
+    a = _plane_args(weights, sched, P, logits=logits, true_plane=true_planes,
+                    idx_cm=_plane_idx_cm(sched.latent_shape, K, str(dev)),
+                    fsel=fsel, ssel=ssel)
+    _launch('plane_tables', a, dev)
+    build.LAUNCHES['plane_forward_encode'] += 1
+    return fsel, ssel
 
 
 # ---------------------------------------------------------------------------

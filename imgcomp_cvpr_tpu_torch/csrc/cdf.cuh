@@ -20,26 +20,61 @@
 
 // logits (L,) -> (freq, cdf_low) with sum(freq) == SCALE: softmax with a
 // sequential sum, floor(p * (SCALE - L)) + 1, the deficit to the lowest
-// index of the max probability, exclusive cumsum.
-__device__ __forceinline__ void cdf_from_logits(const float* lg, int L, int* freq,
+// index of the max probability, exclusive cumsum. NL > 0 fixes L at compile
+// time (the loops unroll and the arrays stay in registers); NL == 0 takes
+// the run-time L. The arithmetic is the same either way.
+template <int NL>
+__device__ __forceinline__ void cdf_from_logits(const float* lg, int L_rt, int* freq,
                                                 int* cdf) {
+  constexpr int N = NL > 0 ? NL : MAX_L;
+  const int L = NL > 0 ? NL : L_rt;
   float m = lg[0];
-  for (int l = 1; l < L; ++l) m = fmaxf(m, lg[l]);
-  float e[MAX_L];
-  for (int l = 0; l < L; ++l) e[l] = expf(lg[l] - m);
+#pragma unroll
+  for (int l = 1; l < N; ++l)
+    if (l < L) m = fmaxf(m, lg[l]);
+  float e[N];
+#pragma unroll
+  for (int l = 0; l < N; ++l)
+    if (l < L) e[l] = expf(lg[l] - m);
   float s = e[0];
-  for (int l = 1; l < L; ++l) s = s + e[l];
+#pragma unroll
+  for (int l = 1; l < N; ++l)
+    if (l < L) s = s + e[l];
   const float scale_l = (float)(SCALE - (unsigned)L);
   float pmax = -1.f;
   int am = 0, total = 0;
-  for (int l = 0; l < L; ++l) {
-    const float p = e[l] / s;
-    const int f = (int)floorf(p * scale_l) + 1;
-    freq[l] = f;
-    total += f;
-    if (p > pmax) { pmax = p; am = l; }
+#pragma unroll
+  for (int l = 0; l < N; ++l) {
+    if (l < L) {
+      const float p = e[l] / s;
+      const int f = (int)floorf(p * scale_l) + 1;
+      freq[l] = f;
+      total += f;
+      if (p > pmax) { pmax = p; am = l; }
+    }
   }
-  freq[am] += (int)SCALE - total;
+  const int deficit = (int)SCALE - total;
   int acc = 0;
-  for (int l = 0; l < L; ++l) { cdf[l] = acc; acc += freq[l]; }
+#pragma unroll
+  for (int l = 0; l < N; ++l) {
+    if (l < L) {
+      if (l == am) freq[l] += deficit;
+      cdf[l] = acc;
+      acc += freq[l];
+    }
+  }
+}
+
+// (freq[sym], cdf[sym]) without a dynamically indexed register array.
+template <int NL>
+__device__ __forceinline__ void cdf_select(const int* freq, const int* cdf, int L_rt,
+                                           int sym, int* fs, int* ss) {
+  constexpr int N = NL > 0 ? NL : MAX_L;
+  const int L = NL > 0 ? NL : L_rt;
+  int f = 0, s = 0;
+#pragma unroll
+  for (int l = 0; l < N; ++l)
+    if (l < L && l == sym) { f = freq[l]; s = cdf[l]; }
+  *fs = f;
+  *ss = s;
 }

@@ -1,42 +1,64 @@
-// One depth plane's 2D wavefront, encode and decode (kernel 5 of the port).
+// The planar (K != 3) wavefront forward, encode and decode (kernel 5 of the
+// port).
 //
 // Replaces the TPU kernel imgcomp_cvpr_tpu/coding/planar_kernel.py::
-// make_plane_forward (pl.pallas_call at :393): its enc_teacher variant
-// (mode 1, teacher-forced, writes per-lane (freq, start)) and its dec_only
-// variant (mode 0, the sequential 32-lane interleaved rANS decode with the
-// per-plane tail-packing threshold). Both modes compute logits with the same
-// code and their CDFs with cdf_from_logits (cdf.cuh, shared with kernel 2).
+// make_plane_forward (pl.pallas_call at :393): its enc_teacher variant (the
+// teacher-forced per-lane (freq, start) tables), its dec_only variant (the
+// sequential 32-lane interleaved rANS decode with the per-plane tail-packing
+// threshold) and its shared mode-flag variant. Every layer sum is cell_sum
+// of layer_sum.cuh and every CDF is cdf_from_logits of cdf.cuh (both shared
+// with kernel 2); encode and decode compute their logits and CDFs with these
+// same two functions, which is what makes the streams decode bit-exactly.
 //
-// Design. One thread block per image walks the T2 steps of the plane in
-// order (coding/planar.py has the geometry). Cell (h, w) of level l is
-// computed at step t = BH*h + w + CTR*l, so the cells of one step are
-// worked out from t alone: no host tables. Activations of levels 1-3 live
-// in device memory as whole (H_l, W_l, kf) grids per image (they are also
-// the plane's outputs, which PlanarCoder's bias convolutions of the next
-// planes read); the padded q plane (level 0) is filled with the pad value
-// at the start and receives each symbol's center in the step that codes
-// it. At step t the block computes the level 1..4 cells of the step, with a
-// block barrier between levels (the centre tap of layers 2-4 and layer 3's
-// skip read cells written earlier in the same step), each cell's sum over
-// the layer's top-slice taps plus its bias row (the lower kernel slices
-// over the known planes). Level 4 writes the band's logits to shared
-// memory; then the step's <= 32 band symbols are one rANS chunk: in encode
-// each lane selects its (freq, start); in decode warp 0 finds each lane's
-// symbol, updates its state and pulls renorm words ranked with
-// __ballot_sync/__popc exactly like rans.decode_step_interleaved, with no
-// pull once a lane has decoded thresh symbols of this plane. Top-slice
-// weights sit in shared memory.
+// Geometry (coding/planar.py). Cell (h, w) of level l of a plane is computed
+// at step t = BH*h + w + CTR*l from the top-slice taps of level l-1 of the
+// same plane plus its bias row (the lower kernel slices over the known planes
+// below, convolutions the caller runs); level 0 is the padded q plane, level
+// 4 the logits. Activations are whole (H_l, W_l, kf) grids in device memory.
 //
-// Numerics: every layer sum is accumulated in (tap, input channel) order
-// with separate round-to-nearest multiplies and adds, then the bias row
-// (and layer 3's skip) is added, so the plain PyTorch version
-// (coding/planar_kernel.py) reproduces every logit bit for bit.
+// Three entries.
+//
+// plane_level + plane_tables: the teacher-forced encode as layer-parallel
+// passes over the whole card. All symbols are known, so level l of every
+// plane depends only on level l-1 (and, through the bias rows, on level l-1
+// of the planes below): one plane_level launch covers all cells of level l
+// of all B x C (image, plane) pairs, a thread owning 2 cells x CO output
+// channels; plane_tables turns the logits into the (plane, step, lane)
+// (freq, start) tables. Five launches a batch, where the scan took one a
+// plane.
+//
+// plane_forward: the scan over one plane's T2 steps, one block per image.
+// Mode 0 is the decoder (q -> level 1 -> 2 -> 3 -> 4 -> symbol -> q is a
+// true recurrence); mode 1 is the teacher-forced scan kept as the encode's
+// consistency oracle (the counterpart of the TPU kernel's shared mode-flag
+// variant). A step has at most ~13 cells a level, 312 (cell, channel) work
+// items: that does not feed a cluster, and what a step costs is latency. So
+// the block has just the threads of one band (a.threads, from the wrapper),
+// the block fetches the tap rows of a phase's cells into shared memory in one
+// sweep (stage_rows of layer_sum.cuh: one memory latency a phase, not one a
+// tap; one block per image, so plain loads are coherent), a thread owns one
+// (cell, channel) and starts a whole tap's 24 loads and multiplies before its
+// 24 dependent adds (widths at compile time, x as float4; 2 or 4 channels a
+// thread were measured and were slower: fewer warps, longer serial chains), the
+// CDF is computed with L at compile time in registers, and the stream words
+// come through a shared-memory window (rans_window.cuh). Per step: level 1 |
+// barrier | 2 | barrier | 3 (+ skip) | barrier | 4 -> logits in shared
+// memory | barrier | warp 0: CDF, slot search, state update, renorm pulls
+// ranked with __ballot_sync/__popc, `cnt < thr` suppression, exactly like
+// rans.decode_step_interleaved; q write | barrier. Each barrier stands on
+// the recurrence (the centre tap of levels 2-4 and level 3's skip read cells
+// written earlier in the same step).
+//
+// Template instances: <KF = 24, NL = 6, N1 = 12, NO = 13> (K = 5 with the
+// shipped widths: the `pc base` context model) and <0, 0, 0, 0>, the generic
+// instance for any other K or width (one (cell, channel) a thread, run-time
+// loops, one global and one shared load per multiply: the first version's
+// inner loop, several times slower).
 //
 // Bound on the H100: operations; the top-slice taps of one Kodak-size plane
 // (64 x 96, K=5, kf=24) are ~0.45 GFLOP per image in f32 (chip_smoke.py
-// counts them). What really bounds it is the chain of T2 dependent steps x
-// 5 barriered phases with one SM per image; this first version keeps the
-// plain structure (no tensor cores, no split of an image over SMs).
+// counts them and prints the measured times). The decode's second figure is
+// its chain floor: 12 + 3 * 13 * 24 = 948 dependent adds a step.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,18 +68,23 @@
 #define MAX_TAPS 32
 #define SCALE 65536u
 #define RANS_L 65536u
-#define THREADS 384
+#define ENC_THREADS 256
+#define SCAN_MAX_THREADS 512
 
 #include "cdf.cuh"
+#include "layer_sum.cuh"
+#include "rans_window.cuh"
 
 struct PlaneArgs {
-  int mode, B, H, W, K, BH, CTR, T2, kf, L, cap;
+  int mode, B, H, W, K, BH, CTR, T2, kf, L, cap, threads, level;
   int nt[4];
   int tdy[4][MAX_TAPS];
   int tdx[4][MAX_TAPS];
   const float* params;
   const float *bias1, *bias2, *bias3, *bias4;
   float *act1, *act2, *act3, *qplane;
+  float* logits;
+  const int* idx_cm;
   const int* true_plane;
   int *fsel, *ssel;
   const int* streams;
@@ -65,6 +92,7 @@ struct PlaneArgs {
   const int* gptr_in;
   const int* thresh;
   int *syms_out, *states_out, *gptr_out;
+  long long* prof;   // optional (B, 5) clock sums of thread 0 (scan), or null
 };
 
 // First band row of diagonal v in a (Hl, Wl) grid: cells (h, v - BH*h),
@@ -79,98 +107,309 @@ __device__ __forceinline__ int band_hi(int v, int Hl, int BH) {
   return h < Hl - 1 ? h : Hl - 1;
 }
 
-// One level's cells of one step: every (cell, output channel). dst is the
-// level's grid, or (band) the shared-memory logits indexed by h - h_lo.
-__device__ __forceinline__ void level_phase(
-    int v, int Hl, int Wl, int BH, const int* tdy, const int* tdx, int nt,
-    const float* src, int Ws, int cin, const float* w, const float* bias, int cout,
-    bool relu, const float* skip, int sk, int Wsk, float* dst, bool band) {
-  if (v < 0) return;
-  const int h_lo = band_lo(v, Wl, BH);
-  const int nc = band_hi(v, Hl, BH) - h_lo + 1;
-  for (int it = threadIdx.x; it < nc * cout; it += blockDim.x) {
-    const int h = h_lo + it / cout, c = it % cout;
-    const int wc = v - BH * h;
-    float acc = 0.f;
-    for (int k = 0; k < nt; ++k) {
-      const float* x = src + ((size_t)(h + tdy[k]) * Ws + (wc + tdx[k])) * cin;
-      const float* wk = w + k * cin * cout + c;
-      // Explicit round-to-nearest mul and add (no FMA contraction): the
-      // plain version repeats exactly this sequence of roundings.
-      for (int ci = 0; ci < cin; ++ci)
-        acc = __fadd_rn(acc, __fmul_rn(x[ci], wk[ci * cout]));
-    }
-    acc = __fadd_rn(acc, bias[((size_t)h * Wl + wc) * cout + c]);
-    if (skip) acc = __fadd_rn(acc, skip[((size_t)(h + sk) * Wsk + (wc + sk)) * cout + c]);
-    if (relu) acc = fmaxf(acc, 0.f);
-    if (band)
-      dst[(h - h_lo) * cout + c] = acc;
-    else
-      dst[((size_t)h * Wl + wc) * cout + c] = acc;
-  }
-}
-
 __host__ __device__ inline int params_size(const int* nt, int kf, int L) {
   return nt[0] * kf + (nt[1] + nt[2]) * kf * kf + nt[3] * kf * L + 1 + L;
 }
 
-__global__ void __launch_bounds__(THREADS) plane_kernel(PlaneArgs a) {
-  extern __shared__ float sm[];
-  __shared__ float lg[R * MAX_L];
-  const int b = blockIdx.x, kf = a.kf, L = a.L, K = a.K, BH = a.BH;
-  const int half = K / 2, reach = 4 * half;
-  int Hl[5], Wl[5];
-  for (int l = 0; l < 5; ++l) {
-    Hl[l] = a.H + 2 * (4 - l) * half;
-    Wl[l] = a.W + 2 * (4 - l) * half;
-  }
-  const int np = params_size(a.nt, kf, L);
-  for (int i = threadIdx.x; i < np; i += blockDim.x) sm[i] = a.params[i];
-  const float* w1 = sm;
-  const float* w2 = w1 + a.nt[0] * kf;
-  const float* w3 = w2 + a.nt[1] * kf * kf;
-  const float* w4 = w3 + a.nt[2] * kf * kf;
-  const float* padp = w4 + a.nt[3] * kf * L;
-  const float* centers = padp + 1;
+// One level of one (image, plane): grids, weights, bias row, skip.
+struct Level {
+  int Hl, Wl, Ws, cin, cout, nt, sk, Wsk;
+  const int *tdy, *tdx;
+  const float *src, *w, *bias, *skip;
+  float* dst;
+  bool relu;
+};
 
+// Address of tap k's input row of cell (h, wc) in the level below.
+template <int CIN>
+__device__ __forceinline__ const float* tap_row(const Level& lv, int h, int wc, int k) {
+  const int cin = CIN > 0 ? CIN : lv.cin;
+  return lv.src + ((size_t)(h + lv.tdy[k]) * lv.Ws + (wc + lv.tdx[k])) * cin;
+}
+
+// Output channels [ch, ch + CO) of the M cells (h[m], wc[m]): the sum over
+// the level's top-slice taps (cell_sum, or its generic instance when CIN ==
+// 0, M == CO == 1), then the bias row, level 3's skip, ReLU. row(m, k): where
+// tap k's input row of cell m is read from (the level below, or the rows
+// stage_rows put in shared memory).
+template <int CIN, int COUT, int CO, int NT, int M, class Row>
+__device__ __forceinline__ void level_cells(const Level& lv, const int (&h)[M],
+                                            const int (&wc)[M], int ch,
+                                            float (&acc)[M][CO], Row row) {
+  if constexpr (CIN > 0) {
+    cell_sum<CIN, COUT, CO, NT, M, 1, false>(acc, row, lv.w, ch);
+  } else {
+    acc[0][0] = cell_sum_any<false>([&](int k) { return row(0, k); }, lv.w, ch, lv.cin,
+                                    lv.cout, lv.nt);
+  }
+  const int cout = COUT > 0 ? COUT : lv.cout;
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+#pragma unroll
+    for (int i = 0; i < CO; ++i) {
+      float v = __fadd_rn(acc[m][i], lv.bias[((size_t)h[m] * lv.Wl + wc[m]) * cout + ch + i]);
+      if (lv.skip)
+        v = __fadd_rn(v, lv.skip[((size_t)(h[m] + lv.sk) * lv.Wsk + (wc[m] + lv.sk)) * cout
+                                 + ch + i]);
+      acc[m][i] = lv.relu ? fmaxf(v, 0.f) : v;
+    }
+  }
+}
+
+struct Weights {
+  const float *w1, *w2, *w3, *w4, *pad, *centers;
+};
+
+__device__ __forceinline__ Weights load_weights(float* sm, const PlaneArgs& a) {
+  const int np = params_size(a.nt, a.kf, a.L);
+  for (int i = threadIdx.x; i < np; i += blockDim.x) sm[i] = a.params[i];
+  Weights p;
+  p.w1 = sm;
+  p.w2 = p.w1 + a.nt[0] * a.kf;
+  p.w3 = p.w2 + a.nt[1] * a.kf * a.kf;
+  p.w4 = p.w3 + a.nt[2] * a.kf * a.kf;
+  p.pad = p.w4 + a.nt[3] * a.kf * a.L;
+  p.centers = p.pad + 1;
+  return p;
+}
+
+// Level l = 1..4 of (image, plane) `bp` of the arrays in `a`.
+__device__ __forceinline__ Level make_level(const PlaneArgs& a, const Weights& p, int l,
+                                            int bp) {
+  const int half = a.K / 2, kf = a.kf;
+  auto Hof = [&](int lv) { return a.H + 2 * (4 - lv) * half; };
+  auto Wof = [&](int lv) { return a.W + 2 * (4 - lv) * half; };
+  const float* srcs[4] = {a.qplane, a.act1, a.act2, a.act3};
+  float* dsts[4] = {a.act1, a.act2, a.act3, a.logits};
+  const float* biases[4] = {a.bias1, a.bias2, a.bias3, a.bias4};
+  const float* ws[4] = {p.w1, p.w2, p.w3, p.w4};
+  Level lv;
+  lv.Hl = Hof(l);
+  lv.Wl = Wof(l);
+  lv.Ws = Wof(l - 1);
+  lv.cin = l == 1 ? 1 : kf;
+  lv.cout = l == 4 ? a.L : kf;
+  lv.nt = a.nt[l - 1];
+  lv.tdy = a.tdy[l - 1];
+  lv.tdx = a.tdx[l - 1];
+  lv.src = srcs[l - 1] + (size_t)bp * Hof(l - 1) * Wof(l - 1) * lv.cin;
+  lv.w = ws[l - 1];
+  lv.bias = biases[l - 1] + (size_t)bp * lv.Hl * lv.Wl * lv.cout;
+  lv.dst = dsts[l - 1] ? dsts[l - 1] + (size_t)bp * lv.Hl * lv.Wl * lv.cout : nullptr;
+  lv.relu = l != 3;
+  lv.skip = l == 3 ? a.act1 + (size_t)bp * Hof(1) * Wof(1) * kf : nullptr;
+  lv.sk = a.K - 1;
+  lv.Wsk = Wof(1);
+  return lv;
+}
+
+template <int CO>
+__device__ __forceinline__ void store_cell(float* p, const float (&v)[CO]) {
+  if constexpr (CO == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (CO == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < CO; ++i) p[i] = v[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Layer-parallel encode: one launch per level over all (image, plane) pairs
+// ---------------------------------------------------------------------------
+
+// Every cell of the level: a thread owns CO channels of M consecutive cells
+// (each weight it loads serves M cells).
+template <int CIN, int COUT, int CO, int NT, int M>
+__device__ __forceinline__ void level_all_cells(const Level& lv) {
+  const int groups = CIN > 0 ? COUT / CO : lv.cout;
+  const int ncell = lv.Hl * lv.Wl, units = (ncell + M - 1) / M;
+  for (int it = blockIdx.x * blockDim.x + threadIdx.x; it < units * groups;
+       it += gridDim.x * blockDim.x) {
+    const int u = it / groups, ch = (it % groups) * CO;
+    int h[M], wc[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      // A unit's missing cells (the grid's ragged end) repeat its first.
+      const int cell = u * M + m < ncell ? u * M + m : u * M;
+      h[m] = cell / lv.Wl;
+      wc[m] = cell % lv.Wl;
+    }
+    float acc[M][CO];
+    level_cells<CIN, COUT, CO, NT, M>(
+        lv, h, wc, ch, acc, [&](int m, int k) { return tap_row<CIN>(lv, h[m], wc[m], k); });
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+      if (u * M + m < ncell)
+        store_cell<CO>(lv.dst + ((size_t)h[m] * lv.Wl + wc[m]) * lv.cout + ch, acc[m]);
+  }
+}
+
+template <int KF, int NL, int N1, int NO>
+__global__ void __launch_bounds__(ENC_THREADS) plane_level_kernel(PlaneArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  const Weights p = load_weights(sm, a);
+  __syncthreads();
+  const Level lv = make_level(a, p, a.level, blockIdx.y);
+  if constexpr (KF > 0) {
+    if (a.level == 1) level_all_cells<1, KF, 4, N1, 2>(lv);
+    else if (a.level == 4) level_all_cells<KF, NL, 2, NO, 2>(lv);
+    else level_all_cells<KF, KF, 4, NO, 2>(lv);
+  } else {
+    level_all_cells<0, 0, 1, 0, 1>(lv);
+  }
+}
+
+// (B*C, T2, R) lanes: logits -> CDF -> the true symbol's (freq, start); 0 on
+// dead lanes.
+template <int NL>
+__global__ void __launch_bounds__(ENC_THREADS) plane_tables_kernel(PlaneArgs a) {
+  const int L = NL ? NL : a.L, HW = a.H * a.W;
+  const size_t per = (size_t)a.T2 * R, total = (size_t)a.B * per;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const size_t bp = e / per;
+    const int idx = a.idx_cm[e % per];
+    int fs = 0, ss = 0;
+    if (idx < HW) {
+      float lg[NL ? NL : MAX_L];
+      const float* src = a.logits + (bp * HW + idx) * L;
+#pragma unroll
+      for (int i = 0; i < (NL ? NL : MAX_L); ++i)
+        if (i < L) lg[i] = src[i];
+      int freq[NL ? NL : MAX_L], cdf[NL ? NL : MAX_L];
+      cdf_from_logits<NL>(lg, L, freq, cdf);
+      cdf_select<NL>(freq, cdf, L, a.true_plane[bp * HW + idx], &fs, &ss);
+    }
+    a.fsel[e] = fs;
+    a.ssel[e] = ss;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The scan over one plane: decode (mode 0) and the encode oracle (mode 1)
+// ---------------------------------------------------------------------------
+
+// The cells of diagonal v of one level: every (cell, channel group) is one
+// work item of the block. With compile-time widths the block first stages
+// the tap rows of up to STAGE_CELLS cells in `xs` (stage_rows: one memory
+// latency a phase, not one a tap). band != nullptr stores to
+// band[(h - h_lo) * cout + ch] (the shared-memory logits), else into the
+// level's grid.
+#define STAGE_CELLS 32
+
+template <int CIN, int COUT, int CO, int NT>
+__device__ __forceinline__ void level_band(const Level& lv, int v, int BH, float* band,
+                                           float* xs) {
+  if (v < 0) return;
+  const int h_lo = band_lo(v, lv.Wl, BH);
+  const int nc = band_hi(v, lv.Hl, BH) - h_lo + 1;
+  const int groups = CIN > 0 ? COUT / CO : lv.cout;
+  auto store = [&](int r, int ch, const float (&acc)[CO]) {
+    const int h = h_lo + r, wc = v - BH * h;
+    float* o = band ? band + r * lv.cout + ch
+                    : lv.dst + ((size_t)h * lv.Wl + wc) * lv.cout + ch;
+#pragma unroll
+    for (int i = 0; i < CO; ++i) o[i] = acc[i];
+  };
+  if constexpr (CIN > 0) {
+    constexpr int S = stage_stride<CIN, NT>();
+    for (int r0 = 0; r0 < nc; r0 += STAGE_CELLS) {        // block-uniform
+      const int ncell = nc - r0 < STAGE_CELLS ? nc - r0 : STAGE_CELLS;
+      if (r0 > 0) __syncthreads();
+      stage_rows<CIN, NT, false>(xs, ncell, [&](int cell, int k) {
+        const int h = h_lo + r0 + cell;
+        return tap_row<CIN>(lv, h, v - BH * h, k);
+      });
+      __syncthreads();
+      for (int it = threadIdx.x; it < ncell * groups; it += blockDim.x) {
+        const int cell = it / groups, ch = (it % groups) * CO;
+        const int h[1] = {h_lo + r0 + cell}, wc[1] = {v - BH * h[0]};
+        float acc[1][CO];
+        level_cells<CIN, COUT, CO, NT, 1>(
+            lv, h, wc, ch, acc, [&](int, int k) { return xs + cell * S + k * CIN; });
+        store(r0 + cell, ch, acc[0]);
+      }
+    }
+  } else {
+    for (int it = threadIdx.x; it < nc * groups; it += blockDim.x) {
+      const int r = it / groups, ch = (it % groups) * CO;
+      const int h[1] = {h_lo + r}, wc[1] = {v - BH * h[0]};
+      float acc[1][CO];
+      level_cells<CIN, COUT, CO, NT, 1>(
+          lv, h, wc, ch, acc, [&](int, int k) { return tap_row<CIN>(lv, h[0], wc[0], k); });
+      store(r, ch, acc[0]);
+    }
+  }
+}
+
+template <int KF, int NL, int N1, int NO>
+__global__ void __launch_bounds__(SCAN_MAX_THREADS) plane_kernel(PlaneArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ float lg[R * MAX_L];
+  __shared__ int win[RANS_WIN];
+  const int b = blockIdx.x, L = NL ? NL : a.L, BH = a.BH;
+  const int reach = 4 * (a.K / 2), W0 = a.W + 2 * reach, H0 = a.H + 2 * reach;
+  const Weights p = load_weights(sm, a);
+  float* xs = sm + ((params_size(a.nt, a.kf, a.L) + 3) & ~3);   // the staged tap rows
   const int HW = a.H * a.W;
-  float* q = a.qplane + (size_t)b * Hl[0] * Wl[0];
-  float* act1 = a.act1 + (size_t)b * Hl[1] * Wl[1] * kf;
-  float* act2 = a.act2 + (size_t)b * Hl[2] * Wl[2] * kf;
-  float* act3 = a.act3 + (size_t)b * Hl[3] * Wl[3] * kf;
-  const float* bias1 = a.bias1 + (size_t)b * Hl[1] * Wl[1] * kf;
-  const float* bias2 = a.bias2 + (size_t)b * Hl[2] * Wl[2] * kf;
-  const float* bias3 = a.bias3 + (size_t)b * Hl[3] * Wl[3] * kf;
-  const float* bias4 = a.bias4 + (size_t)b * HW * L;
-  const float pad = a.params[np - 1 - L];
-  for (int i = threadIdx.x; i < Hl[0] * Wl[0]; i += blockDim.x) q[i] = pad;
+  float* q = a.qplane + (size_t)b * H0 * W0;
+  const float pad = a.params[params_size(a.nt, a.kf, a.L) - 1 - a.L];
+  for (int i = threadIdx.x; i < H0 * W0; i += blockDim.x) q[i] = pad;
+  __syncthreads();
+  const Level lv1 = make_level(a, p, 1, b), lv2 = make_level(a, p, 2, b);
+  const Level lv3 = make_level(a, p, 3, b), lv4 = make_level(a, p, 4, b);
 
   const int lane = threadIdx.x & 31;
   const bool rans_warp = (a.mode == 0) && threadIdx.x < 32;
-  uint32_t st = 0, gptr = 0;
+  uint32_t st = 0, gptr = 0, base = 0;
   int cnt = 0, thr = 0;
   const int* stream = a.streams + (size_t)b * a.cap;
   if (rans_warp) {
     st = (uint32_t)a.states_in[b * R + lane];
-    gptr = (uint32_t)a.gptr_in[b];
+    gptr = base = (uint32_t)a.gptr_in[b];
     thr = a.thresh[b * R + lane];
+    window_fill(win, stream, a.cap, base, 0, lane);
   }
   __syncthreads();
 
+  // Optional profile: thread 0's clocks in levels 1-4 (each with its
+  // barrier) and in the CDF + rANS part, summed over the steps.
+  long long prof[5] = {0, 0, 0, 0, 0};
+  long long tick = clock64();
+  auto lap = [&](int i) {
+    if (a.prof) {
+      const long long now = clock64();
+      prof[i] += now - tick;
+      tick = now;
+    }
+  };
+
   for (int t = 0; t < a.T2; ++t) {
-    level_phase(t - a.CTR, Hl[1], Wl[1], BH, a.tdy[0], a.tdx[0], a.nt[0], q, Wl[0], 1,
-                w1, bias1, kf, true, nullptr, 0, 0, act1, false);
-    __syncthreads();
-    level_phase(t - 2 * a.CTR, Hl[2], Wl[2], BH, a.tdy[1], a.tdx[1], a.nt[1], act1,
-                Wl[1], kf, w2, bias2, kf, true, nullptr, 0, 0, act2, false);
-    __syncthreads();
-    level_phase(t - 3 * a.CTR, Hl[3], Wl[3], BH, a.tdy[2], a.tdx[2], a.nt[2], act2,
-                Wl[2], kf, w3, bias3, kf, false, act1, K - 1, Wl[1], act3, false);
-    __syncthreads();
     const int v4 = t - 4 * a.CTR;
-    level_phase(v4, Hl[4], Wl[4], BH, a.tdy[3], a.tdx[3], a.nt[3], act3, Wl[3], kf,
-                w4, bias4, L, true, nullptr, 0, 0, lg, true);
+    if constexpr (KF > 0) {
+      level_band<1, KF, 1, N1>(lv1, t - a.CTR, BH, nullptr, xs);
+      __syncthreads();
+      lap(0);
+      // Levels 2 and 3 share one instance of the sum (one copy of the code).
+      for (int l = 2; l <= 3; ++l) {
+        level_band<KF, KF, 1, NO>(l == 2 ? lv2 : lv3, t - l * a.CTR, BH, nullptr, xs);
+        __syncthreads();
+        lap(l - 1);
+      }
+      level_band<KF, NL, 1, NO>(lv4, v4, BH, lg, xs);
+    } else {
+      level_band<0, 0, 1, 0>(lv1, t - a.CTR, BH, nullptr, nullptr);
+      __syncthreads();
+      level_band<0, 0, 1, 0>(lv2, t - 2 * a.CTR, BH, nullptr, nullptr);
+      __syncthreads();
+      level_band<0, 0, 1, 0>(lv3, t - 3 * a.CTR, BH, nullptr, nullptr);
+      __syncthreads();
+      level_band<0, 0, 1, 0>(lv4, v4, BH, lg, nullptr);
+    }
     __syncthreads();
+    lap(3);
 
     // The step's band: lane r = level-4 cell h_lo + r.
     int h_lo = 0, nband = 0;
@@ -178,67 +417,124 @@ __global__ void __launch_bounds__(THREADS) plane_kernel(PlaneArgs a) {
       h_lo = band_lo(v4, a.W, BH);
       nband = band_hi(v4, a.H, BH) - h_lo + 1;
     }
-    if (a.mode == 1) {
-      if (threadIdx.x < R) {
-        const int r = threadIdx.x;
-        int fs = 0, ss = 0;
-        if (r < nband) {
-          const int h = h_lo + r, wc = v4 - BH * h;
-          int freq[MAX_L], cdf[MAX_L];
-          cdf_from_logits(lg + r * L, L, freq, cdf);
-          const int sym = a.true_plane[(size_t)b * HW + h * a.W + wc];
-          fs = freq[sym];
-          ss = cdf[sym];
-          q[(h + reach) * Wl[0] + wc + reach] = centers[sym];
-        }
-        const size_t o = ((size_t)b * a.T2 + t) * R + r;
-        a.fsel[o] = fs;
-        a.ssel[o] = ss;
-      }
-    } else if (rans_warp) {
+    if (threadIdx.x < R) {
       const bool act = lane < nband;
       const int h = h_lo + lane, wc = v4 - BH * h;
-      int freq[MAX_L], cdf[MAX_L];
-      int sym = 0;
-      uint32_t x = st;
-      if (act) {
-        cdf_from_logits(lg + lane * L, L, freq, cdf);
-        const uint32_t slot = st & (SCALE - 1u);
-        sym = -1;
-        for (int l = 0; l < L; ++l) sym += ((uint32_t)cdf[l] <= slot) ? 1 : 0;
-        x = (uint32_t)freq[sym] * (st >> 16) + slot - (uint32_t)cdf[sym];
+      int freq[NL ? NL : MAX_L], cdf[NL ? NL : MAX_L];
+      if (act) cdf_from_logits<NL>(lg + lane * L, L, freq, cdf);
+      if (a.mode == 1) {
+        // Teacher-forced: the tables do not depend on rANS state.
+        int fs = 0, ss = 0;
+        if (act) {
+          const int sym = a.true_plane[(size_t)b * HW + h * a.W + wc];
+          cdf_select<NL>(freq, cdf, L, sym, &fs, &ss);
+          q[(h + reach) * W0 + wc + reach] = p.centers[sym];
+        }
+        const size_t o = ((size_t)b * a.T2 + t) * R + lane;
+        a.fsel[o] = fs;
+        a.ssel[o] = ss;
+      } else {
+        int sym = 0;
+        uint32_t x = st;
+        if (act) {
+          const uint32_t slot = st & (SCALE - 1u);
+          sym = -1;
+#pragma unroll
+          for (int l = 0; l < (NL ? NL : MAX_L); ++l)
+            if (l < L) sym += ((uint32_t)cdf[l] <= slot) ? 1 : 0;
+          int fs, ss;
+          cdf_select<NL>(freq, cdf, L, sym, &fs, &ss);
+          x = (uint32_t)fs * (st >> 16) + slot - (uint32_t)ss;
+        }
+        const bool need = act && x < RANS_L && cnt < thr;
+        cnt += act ? 1 : 0;
+        const unsigned mask = __ballot_sync(0xffffffffu, need);
+        if (need) {
+          // win[i] holds stream[min(base + i, cap - 1)]: the clamped read.
+          const int off = (int)(gptr - base) + __popc(mask & ((1u << lane) - 1u));
+          x = (x << 16) | ((uint32_t)win[off] & 0xFFFFu);
+        }
+        if (act) {
+          st = x;
+          a.syms_out[(size_t)b * HW + h * a.W + wc] = sym;
+          q[(h + reach) * W0 + wc + reach] = p.centers[sym];
+        }
+        gptr += (uint32_t)__popc(mask);
+        window_slide(win, stream, a.cap, gptr, base, lane);
       }
-      const bool need = act && x < RANS_L && cnt < thr;
-      cnt += act ? 1 : 0;
-      const unsigned mask = __ballot_sync(0xffffffffu, need);
-      if (need) {
-        int pos = (int)gptr + __popc(mask & ((1u << lane) - 1u));
-        pos = pos < 0 ? 0 : (pos >= a.cap ? a.cap - 1 : pos);
-        x = (x << 16) | ((uint32_t)stream[pos] & 0xFFFFu);
-      }
-      if (act) {
-        st = x;
-        a.syms_out[(size_t)b * HW + h * a.W + wc] = sym;
-        q[(h + reach) * Wl[0] + wc + reach] = centers[sym];
-      }
-      gptr += (uint32_t)__popc(mask);
     }
     __syncthreads();
+    lap(4);
   }
+  if (a.prof && threadIdx.x == 0)
+    for (int i = 0; i < 5; ++i) a.prof[b * 5 + i] = prof[i];
   if (rans_warp) {
     a.states_out[b * R + lane] = (int)st;
     if (lane == 0) a.gptr_out[b] = (int)gptr;
   }
 }
 
-extern "C" int plane_forward(PlaneArgs a, cudaStream_t stream) {
-  if (a.L < 2 || a.L > MAX_L || a.kf < 1 || a.B < 1) return (int)cudaErrorInvalidValue;
+static bool valid(const PlaneArgs& a) {
+  if (a.L < 2 || a.L > MAX_L || a.kf < 1 || a.B < 1) return false;
   for (int l = 0; l < 4; ++l)
-    if (a.nt[l] < 1 || a.nt[l] > MAX_TAPS) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)params_size(a.nt, a.kf, a.L) * sizeof(float);
+    if (a.nt[l] < 1 || a.nt[l] > MAX_TAPS) return false;
+  return true;
+}
+
+// The instance with every width at compile time: K = 5, kf = 24, L = 6.
+static bool fast(const PlaneArgs& a) {
+  return a.K == 5 && a.kf == 24 && a.L == 6 && a.nt[0] == 12 && a.nt[1] == 13 &&
+         a.nt[2] == 13 && a.nt[3] == 13;
+}
+
+// stage_floats: room behind the weights for the scan's staged tap rows.
+template <class Kernel>
+static int launch(Kernel kernel, const PlaneArgs& a, dim3 grid, int threads,
+                  cudaStream_t stream, size_t stage_floats = 0) {
+  const size_t smem =
+      (((size_t)params_size(a.nt, a.kf, a.L) + 3) / 4 * 4 + stage_floats) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      plane_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  plane_kernel<<<a.B, THREADS, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The scan of one plane (mode 0 decode, mode 1 encode oracle), one block of
+// a.threads threads per image.
+extern "C" int plane_forward(PlaneArgs a, cudaStream_t stream) {
+  if (!valid(a) || a.threads < 32 || a.threads > SCAN_MAX_THREADS || a.threads % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (fast(a))
+    return launch(plane_kernel<24, 6, 12, 13>, a, dim3(a.B), a.threads, stream,
+                  (size_t)STAGE_CELLS * stage_stride<24, 13>());
+  return launch(plane_kernel<0, 0, 0, 0>, a, dim3(a.B), a.threads, stream);
+}
+
+// Level a.level (1..4) of all a.B (image, plane) pairs at once: reads level
+// a.level - 1 and the level's bias rows, writes the level (level 4: logits).
+extern "C" int plane_level(PlaneArgs a, cudaStream_t stream) {
+  if (!valid(a) || a.level < 1 || a.level > 4) return (int)cudaErrorInvalidValue;
+  const int half = a.K / 2;
+  const long cells = (long)(a.H + 2 * (4 - a.level) * half) * (a.W + 2 * (4 - a.level) * half);
+  // Work items: (2 cells, 4 or 2 channels) with compile-time widths, else (cell, channel).
+  const long items = fast(a) ? (cells + 1) / 2 * (a.level == 4 ? 3 : 6)
+                             : cells * (a.level == 4 ? a.L : a.kf);
+  long blocks = (items + ENC_THREADS - 1) / ENC_THREADS;
+  const long per_pair = 2112 / a.B > 1 ? 2112 / a.B : 1;   // ~16 blocks an SM in all
+  blocks = blocks > per_pair ? per_pair : blocks;
+  const dim3 grid((unsigned)blocks, a.B);
+  if (fast(a)) return launch(plane_level_kernel<24, 6, 12, 13>, a, grid, ENC_THREADS, stream);
+  return launch(plane_level_kernel<0, 0, 0, 0>, a, grid, ENC_THREADS, stream);
+}
+
+// The (freq, start) tables of all a.B (image, plane) pairs from the logits.
+extern "C" int plane_tables(PlaneArgs a, cudaStream_t stream) {
+  if (!valid(a)) return (int)cudaErrorInvalidValue;
+  const size_t total = (size_t)a.B * a.T2 * R;
+  size_t blocks = (total + ENC_THREADS - 1) / ENC_THREADS;
+  blocks = blocks > 132 * 16 ? 132 * 16 : blocks;
+  if (a.L == 6) plane_tables_kernel<6><<<(unsigned)blocks, ENC_THREADS, 0, stream>>>(a);
+  else plane_tables_kernel<0><<<(unsigned)blocks, ENC_THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }

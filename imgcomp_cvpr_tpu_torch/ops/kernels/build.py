@@ -38,9 +38,11 @@ LAUNCHES: Dict[str, int] = {
     'quantize': 0,
     'quantize_bwd': 0,
     'wavefront_forward_encode': 0,
+    'wavefront_forward_encode_scan': 0,
     'wavefront_forward_decode': 0,
     'rans_reverse': 0,
     'plane_forward_encode': 0,
+    'plane_forward_encode_scan': 0,
     'plane_forward_decode': 0,
     'plane_reverse': 0,
 }

@@ -292,3 +292,107 @@ def test_plain_k3_tables_unchanged():
     f, s = ck.wavefront_forward_plain(ck.MODE_ENCODE, fw, (4, 6, 7), true_syms=syms)
     digest = hashlib.sha256(f.numpy().tobytes() + s.numpy().tobytes()).hexdigest()
     assert digest == 'f7ef5e73660c5d737b49131e64a9eb360814a5a7ddb311f7927b2fc8275ef2a5'
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2's layer-parallel encode (plain layer-at-a-time version on the CPU)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """Six test workers run side by side: one intra-op thread each."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(was)
+
+
+@pytest.mark.parametrize('shape', SHAPES)
+def test_layer_encode_equals_step_ordered_encode(shape):
+    """All cells of a layer at once give exactly the tables of the
+    step-ordered plain version (every output keeps its chain of roundings),
+    dead lanes included, and the logits are the same floats."""
+    _, _, _, tm, _, centers = _setup(shape, seed=9)
+    syms = torch.from_numpy(np.random.RandomState(9).randint(0, 6, (2, int(np.prod(shape)))))
+    fw = tcc.fold_weights(tm, torch.from_numpy(centers))
+    (f_l, s_l), lg_l = ck.wavefront_encode_plain(fw, shape, syms.int(), return_logits=True)
+    (f_s, s_s), lg_s = ck.wavefront_forward_plain(ck.MODE_ENCODE, fw, shape,
+                                                  true_syms=syms.int(), return_logits=True)
+    assert torch.equal(f_l, f_s) and torch.equal(s_l, s_s)
+    assert torch.equal(lg_l, lg_s)
+    # The wrapper's CPU path: layer-parallel by default, the scan on request.
+    f_w, s_w = ck.wavefront_forward(ck.MODE_ENCODE, fw, shape, true_syms=syms.int())
+    f_o, s_o = ck.wavefront_forward(ck.MODE_ENCODE, fw, shape, true_syms=syms.int(), scan=True)
+    assert torch.equal(f_w, f_l) and torch.equal(s_w, s_l)
+    assert torch.equal(f_o, f_l) and torch.equal(s_o, s_l)
+
+
+def test_layer_encode_chunks_do_not_move_the_tables(monkeypatch):
+    """The chunking of a layer's cells is invisible: 7 cells a chunk gives
+    the tables of one chunk."""
+    shape = (4, 6, 7)
+    _, _, _, tm, _, centers = _setup(shape, seed=10)
+    syms = torch.from_numpy(np.random.RandomState(10).randint(0, 6, (2, 168))).int()
+    fw = tcc.fold_weights(tm, torch.from_numpy(centers))
+    whole = ck.wavefront_encode_plain(fw, shape, syms)
+    monkeypatch.setattr(ck, '_PLAIN_CHUNK_FLOATS', 2 * 14 * 8 * 7)
+    parts = ck.wavefront_encode_plain(fw, shape, syms)
+    assert torch.equal(whole[0], parts[0]) and torch.equal(whole[1], parts[1])
+
+
+@pytest.mark.parametrize('shape', SHAPES)
+def test_layer_encode_tables_match_pallas(shape):
+    """The layer-at-a-time tables against JAX make_forward(enc_parallel=True)
+    in interpret mode, under the bound of the step-ordered version (ROADMAP
+    Queue 3: |delta| <= 2 on a flip, at most 2 flips at (4, 6, 7), at most
+    0.1% elsewhere)."""
+    jm, cfg, params, tm, tcfg, centers = _setup(shape, seed=2)
+    syms = np.random.RandomState(2).randint(0, 6, (2,) + shape)
+    weights, _, jf, js, _, _ = _jax_tables(jm, cfg, params, centers, syms)
+    tf, ts = ck.wavefront_encode_plain(_folded_from_jax(weights, 8), shape,
+                                       torch.from_numpy(syms.reshape(2, -1)))
+    act = ck.build_schedule(shape).idx_cm < np.prod(shape)
+    flips = ((tf.numpy() != jf) | (ts.numpy() != js)) & act[None]
+    assert np.abs(tf.numpy() - jf)[flips].max(initial=0) <= 2
+    assert np.abs(ts.numpy() - js)[flips].max(initial=0) <= 2
+    limit = 2 if shape == (4, 6, 7) else int(1e-3 * act.sum() * 2)
+    assert flips.sum() <= limit, (flips.sum(), act.sum() * 2)
+    assert not tf.numpy()[:, ~act].any() and not ts.numpy()[:, ~act].any()
+
+
+@pytest.mark.parametrize('shape', SHAPES)
+def test_layer_encode_streams_equal_step_ordered_streams(shape, monkeypatch):
+    """Streams written from the layer-parallel tables (the codec's path)
+    are byte-identical to streams written from the step-ordered encode, and
+    round-trip through the plain decode."""
+    _, _, _, tm, tcfg, centers = _setup(shape, seed=12)
+    syms = torch.from_numpy(np.random.RandomState(12).randint(0, 6, (2,) + shape))
+    c = torch.from_numpy(centers)
+    coder = tcc.CudaCoder(tm, tcfg, device='cpu')
+    calls = []
+    real = ck.wavefront_forward
+
+    def spy(mode, *a, **k):
+        calls.append((mode, k.get('scan', False)))
+        return real(mode, *a, **k)
+
+    monkeypatch.setattr(ck, 'wavefront_forward', spy)
+    layered = [r.bitstream for r in coder.encode_batch(syms, c)]
+    assert calls == [(ck.MODE_ENCODE, False)]
+    monkeypatch.setattr(ck, 'wavefront_forward',
+                        lambda mode, *a, **k: real(mode, *a, **dict(k, scan=True)))
+    stepped = [r.bitstream for r in coder.encode_batch(syms, c)]
+    assert layered == stepped
+    monkeypatch.setattr(ck, 'wavefront_forward', real)
+    assert torch.equal(coder.decode_batch(layered, c).long(), syms)
+
+
+def test_schedule_slot_table():
+    """slot4 names, for every layer-4 cell in step order, the column of its
+    step's idx_cm row (where the scan puts the cell's logits)."""
+    for shape in SHAPES + [(32, 8, 12)]:
+        sched = ck.build_schedule(shape)
+        cells = sched.layers[3]
+        step = np.repeat(np.arange(sched.T), np.diff(cells.ptr))
+        np.testing.assert_array_equal(sched.idx_cm[step, sched.slot4], cells.cells)
+        assert sched.slot4.max() < sched.S * ck.R

@@ -60,7 +60,7 @@ def test_forward_encode_kernel_matches_plain(cuda_device, shape):
     w = cuda_codec.fold_weights(pc, centers)
     rng = np.random.RandomState(1)
     syms = torch.from_numpy(rng.randint(0, 6, (2, int(np.prod(shape))))).int().to(cuda_device)
-    fk, sk = ck.wavefront_forward(ck.MODE_ENCODE, w, shape, true_syms=syms)
+    fk, sk = ck.wavefront_forward(ck.MODE_ENCODE, w, shape, true_syms=syms, scan=True)
     fp, sp = ck.wavefront_forward_plain(ck.MODE_ENCODE, w, shape, true_syms=syms)
     act = torch.from_numpy(ck.build_schedule(shape).idx_cm < np.prod(shape)).to(cuda_device)
     flips = ((fk != fp) | (sk != sp)) & act
@@ -108,6 +108,82 @@ def test_codec_roundtrip_through_kernels(cuda_device):
 # Planar codec (kernels 5 and 6)
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Layer-parallel encode and cluster decode of kernel 2 (K=3)
+# ---------------------------------------------------------------------------
+
+def _k3_case(device, shape, kf, L, b, seed):
+    pc, cfg = _pc(device, kf=kf, L=L, seed=seed)
+    centers = torch.linspace(-2, 2, L, device=device)
+    n = int(np.prod(shape))
+    syms = torch.from_numpy(np.random.RandomState(seed).randint(0, L, (b, n))).int().to(device)
+    return pc, cfg, centers, cuda_codec.fold_weights(pc, centers), syms
+
+
+# kf = 24, L = 6 is the instance with compile-time widths; (24, 8) and
+# (8, 6) go through the generic instance. (3, 5, 5) never has a warp's worth
+# of cells in a step.
+@pytest.mark.parametrize('kf,L', [(24, 6), (24, 8), (8, 6)])
+@pytest.mark.parametrize('shape', [(3, 5, 5), (4, 6, 7), (6, 10, 12)])
+def test_parallel_encode_equals_scan(cuda_device, shape, kf, L):
+    """The layer-parallel encode tables equal the scan's mode-1 tables entry
+    for entry (dead lanes too: both write 0), and the plain layer-at-a-time
+    version's up to the expf-vs-torch.exp flip allowance."""
+    _, _, _, w, syms = _k3_case(cuda_device, shape, kf, L, 2, seed=5)
+    build.reset_launches()
+    fk, sk = ck.wavefront_forward(ck.MODE_ENCODE, w, shape, true_syms=syms)
+    assert build.LAUNCHES['wavefront_forward_encode'] == 1
+    fs, ss = ck.wavefront_forward(ck.MODE_ENCODE, w, shape, true_syms=syms, scan=True)
+    assert build.LAUNCHES['wavefront_forward_encode_scan'] == 1
+    assert torch.equal(fk, fs) and torch.equal(sk, ss)
+    fp, sp = ck.wavefront_encode_plain(w, shape, syms)
+    flips = (fk != fp) | (sk != sp)
+    assert flips.sum().item() <= int(1e-3 * syms.numel() * 2)
+    fq, sq = ck.wavefront_forward_plain(ck.MODE_ENCODE, w, shape, true_syms=syms)
+    assert torch.equal(fp, fq) and torch.equal(sp, sq)
+
+
+@pytest.mark.parametrize('b', [1, 3, 17])
+def test_cluster_decode_any_batch(cuda_device, b):
+    """Decode of B = 1, 3 and 17 images, one image over a thread-block
+    cluster, recovers the symbols; every cluster size decodes the same
+    symbols, and the streams equal B = 1 streams (no sum is split)."""
+    shape = (6, 10, 12)
+    pc, cfg, centers, w, syms = _k3_case(cuda_device, shape, 24, 6, b, seed=6)
+    coder = cuda_codec.CudaCoder(pc, cfg, device=cuda_device)
+    res = coder.encode_batch(syms.reshape((b,) + shape), centers)
+    dec = coder.decode_batch([r.bitstream for r in res], centers)
+    assert torch.equal(dec.reshape(b, -1), syms)
+    one = coder.encode_batch(syms[b - 1:].reshape((1,) + shape), centers)[0].bitstream
+    assert one == res[b - 1].bitstream
+    pb = cuda_codec.parse_batch([r.bitstream for r in res],
+                                lambda s: ck.build_schedule(s).stream_cap,
+                                lambda s: ck.lane_totals(ck.build_schedule(s)))
+    args = dict(streams=torch.from_numpy(pb.words).to(cuda_device),
+                init_states=torch.from_numpy(pb.states).to(cuda_device),
+                thresh=torch.from_numpy(pb.thresh).to(cuda_device))
+    for cluster in (1, 2, 3, 6, 8):
+        out = ck.wavefront_forward(ck.MODE_DECODE, w, shape, cluster=cluster, **args)
+        assert torch.equal(out, syms), cluster
+    sched = ck.build_schedule(shape)
+    assert ck.max_active_clusters(24, 6, sched.CQ, sched.T, 8) >= 1
+    assert 1 <= ck.scan_cluster(24, 6, sched.CQ, sched.T, b) <= ck.MAX_CLUSTER
+
+
+def test_generic_instance_roundtrip(cuda_device):
+    """kf = 16, L = 9 (no compile-time instance): kernel 2 encode vs plain,
+    and a round trip through the generic scan."""
+    shape = (5, 7, 9)
+    pc, cfg, centers, w, syms = _k3_case(cuda_device, shape, 16, 9, 2, seed=7)
+    fk, sk = ck.wavefront_forward(ck.MODE_ENCODE, w, shape, true_syms=syms)
+    fp, sp = ck.wavefront_encode_plain(w, shape, syms)
+    assert ((fk != fp) | (sk != sp)).sum().item() <= int(1e-3 * syms.numel() * 2)
+    coder = cuda_codec.CudaCoder(pc, cfg, device=cuda_device)
+    res = coder.encode_batch(syms.reshape((2,) + shape), centers)
+    assert torch.equal(coder.decode_batch([r.bitstream for r in res], centers).reshape(2, -1),
+                       syms)
+
+
 def _planar_pc(device, K=5, kf=8, L=6, seed=0):
     cfg, _ = config_lib.parse_spec('base', 'pc')
     cfg = cfg.replace(kernel_size=K, arch_param__k=kf)
@@ -142,9 +218,9 @@ def test_plane_forward_kernel_matches_plain(cuda_device, K, shape):
     plane = min(2, shape[0] - 1)
     coder, sched, fold, syms, bias = _plane_inputs(cuda_device, shape, K=K, plane=plane)
     true_plane = syms[:, plane].contiguous()
-    before = build.LAUNCHES['plane_forward_encode']
+    before = build.LAUNCHES['plane_forward_encode_scan']
     ok = plk.plane_forward(plk.MODE_ENCODE, fold.top, shape, K, bias, true_plane=true_plane)
-    assert build.LAUNCHES['plane_forward_encode'] == before + 1
+    assert build.LAUNCHES['plane_forward_encode_scan'] == before + 1
     op = plk.plane_forward_plain(plk.MODE_ENCODE, fold.top, shape, K, bias,
                                  true_plane=true_plane)
     act = torch.from_numpy(sched.idx_cm < shape[1] * shape[2]).to(cuda_device)
@@ -199,7 +275,8 @@ def test_planar_roundtrip_through_kernels(cuda_device):
     res = lc.encode_batch(syms, centers)
     dec = lc.decode_batch([r.bitstream for r in res], centers)
     assert torch.equal(dec.long(), syms.long())
-    assert build.LAUNCHES['plane_forward_encode'] == shape[0]
+    assert build.LAUNCHES['plane_forward_encode'] == 5      # 4 levels + the tables
+    assert build.LAUNCHES['plane_forward_encode_scan'] == 0
     assert build.LAUNCHES['plane_forward_decode'] == shape[0]
     assert build.LAUNCHES['plane_reverse'] == 1
     assert build.LAUNCHES['wavefront_forward_encode'] == 0
@@ -220,6 +297,45 @@ def test_planar_streams_batch_invariant(cuda_device):
         assert lc.encode_batch(syms[i:i + 1], centers)[0].bitstream == res[i].bitstream
         dec = lc.decode_batch([res[i].bitstream], centers)
         assert torch.equal(dec[0].long(), syms[i].long())
+
+
+@pytest.mark.parametrize('K,kf,shape', [
+    (5, 24, (4, 8, 8)), (5, 24, (3, 12, 20)), (5, 24, (2, 5, 9)),   # compile-time widths
+    (5, 8, (3, 12, 20)), (3, 24, (3, 5, 9)), (7, 24, (2, 6, 7))])   # generic instance
+def test_planar_parallel_encode_equals_scan(cuda_device, K, kf, shape):
+    """Kernel 5's layer-parallel encode (4 level launches + the tables)
+    equals its plane-by-plane teacher-forced scan on every plane, and the
+    plain layer-at-a-time version up to the flip allowance."""
+    pc, cfg = _planar_pc(cuda_device, K=K, kf=kf, seed=8)
+    centers = torch.linspace(-2, 2, 6, device=cuda_device)
+    coder = planar_codec.PlanarCoder(pc, cfg, device=cuda_device)
+    _, fold = coder._prepare(shape, centers)
+    syms = torch.from_numpy(np.random.RandomState(8).randint(0, 6, (2,) + shape)).int()
+    syms = syms.to(cuda_device)
+    build.reset_launches()
+    fk, sk = coder.encode_tables(syms, fold)
+    assert build.LAUNCHES['plane_forward_encode'] == 5
+    fs, ss = coder.encode_tables_scan(syms, fold)
+    assert build.LAUNCHES['plane_forward_encode_scan'] == shape[0]
+    assert torch.equal(fk, fs) and torch.equal(sk, ss)
+    cpu = planar_codec.PlanarCoder(pc.cpu(), cfg, device='cpu')
+    _, fold_cpu = cpu._prepare(shape, centers.cpu())
+    fp, sp = cpu.encode_tables(syms.cpu(), fold_cpu)
+    # CPU vs card: the bias-row convolutions and exp differ by an ulp.
+    flips = (fk.cpu() != fp) | (sk.cpu() != sp)
+    assert flips.sum().item() <= int(5e-3 * syms.numel() * 2)
+
+
+@pytest.mark.parametrize('b', [1, 3, 17])
+def test_planar_decode_any_batch(cuda_device, b):
+    shape = (3, 12, 20)
+    pc, cfg = _planar_pc(cuda_device, kf=24, seed=9)
+    centers = torch.linspace(-2, 2, 6, device=cuda_device)
+    syms = torch.from_numpy(np.random.RandomState(9).randint(0, 6, (b,) + shape)).to(cuda_device)
+    lc = codec.LatentCodec(pc, cfg, device=cuda_device)
+    res = lc.encode_batch(syms, centers)
+    assert torch.equal(lc.decode_batch([r.bitstream for r in res], centers).long(), syms.long())
+    assert lc.encode_batch(syms[b - 1:], centers)[0].bitstream == res[b - 1].bitstream
 
 
 # ---------------------------------------------------------------------------

@@ -291,3 +291,99 @@ def test_seeded_init_matches_jax_initializer():
         assert abs(w.std() - jw.std()) < 0.1 * jw.std()
         assert not conv.bias.detach().any()
         assert torch.equal(conv.weight, b.net.get_submodule(name).weight)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 5's layer-parallel encode (plain layer-at-a-time version on the CPU)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """Six test workers run side by side: one intra-op thread each."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(was)
+
+
+@pytest.mark.parametrize('K,shape', [(5, (4, 8, 8)), (5, (3, 5, 9)), (3, (2, 12, 6))])
+def test_level_encode_equals_plane_scan(K, shape):
+    """Level by level over all planes gives exactly the tables of the
+    plane-by-plane step-ordered plain version, dead lanes included."""
+    _, _, _, tm, tcfg = _models(K, seed=3)
+    with torch.no_grad():                                  # biases are 0 at init
+        for name, p in tm.named_parameters():
+            if name.endswith('bias'):
+                p.copy_(torch.from_numpy(
+                    np.random.RandomState(4).randn(*p.shape).astype(np.float32) * 0.1))
+    syms = torch.from_numpy(np.random.RandomState(3).randint(0, L, (B,) + shape)).int()
+    coder = tpcodec.PlanarCoder(tm, tcfg, device='cpu')
+    _, fold = coder._prepare(shape, torch.from_numpy(CENTERS))
+    f_l, s_l = coder.encode_tables(syms, fold)
+    f_s, s_s = coder.encode_tables_scan(syms, fold)
+    assert torch.equal(f_l, f_s) and torch.equal(s_l, s_s)
+    f_p, s_p = coder.encode_tables(syms, fold, plain=True)
+    assert torch.equal(f_p, f_l) and torch.equal(s_p, s_l)
+    act = tplk._full_active(tplanar.build_planar_schedule(shape, K))
+    assert f_l.numpy()[:, act].min() >= 1 and not f_l.numpy()[:, ~act].any()
+
+
+def test_scan_encode_tables_match_jax(jax_k5):
+    """The step-ordered plain encode (the scan's plain version, plane by
+    plane) against JAX make_plane_forward(enc_teacher=True) under the same
+    bound as the layer-parallel path (ROADMAP Queue 3: |delta| <= 2, at most
+    2 flips of 512 active entries)."""
+    d = jax_k5
+    coder = tpcodec.PlanarCoder(d['tm'], d['tcfg'], device='cpu')
+    _, fold = coder._prepare(SHAPE, torch.from_numpy(CENTERS))
+    tf, ts = coder.encode_tables_scan(torch.from_numpy(d['syms']).int(), fold)
+    act = tplk._full_active(tplanar.build_planar_schedule(SHAPE, 5))[None]
+    flips = ((tf.numpy() != d['fsel']) | (ts.numpy() != d['ssel'])) & act
+    assert np.abs(tf.numpy() - d['fsel'])[flips].max(initial=0) <= 2
+    assert np.abs(ts.numpy() - d['ssel'])[flips].max(initial=0) <= 2
+    assert flips.sum() <= 2, (flips.sum(), act.sum() * B)
+
+
+@pytest.mark.parametrize('shape', [(4, 8, 8), (3, 5, 9)])
+def test_level_encode_streams_equal_scan_streams(shape, monkeypatch):
+    """Streams written from the layer-parallel tables (the codec's path) are
+    byte-identical to streams written from the plane-by-plane scan's, and
+    round-trip through the plain decode."""
+    _, _, _, tm, tcfg = _models(5, seed=8)
+    syms = torch.from_numpy(np.random.RandomState(8).randint(0, L, (B,) + shape))
+    centers = torch.from_numpy(CENTERS)
+    coder = tpcodec.PlanarCoder(tm, tcfg, device='cpu')
+    layered = [r.bitstream for r in coder.encode_batch(syms, centers)]
+    monkeypatch.setattr(coder, 'encode_tables', coder.encode_tables_scan)
+    stepped = [r.bitstream for r in coder.encode_batch(syms, centers)]
+    assert layered == stepped
+    assert torch.equal(coder.decode_batch(layered, centers).long(), syms)
+
+
+@pytest.mark.parametrize('level', [1, 2, 3, 4])
+def test_level_forward_is_the_network_layer(level):
+    """One level of kernel 5's plain encode pass plus nothing else is the
+    masked convolution's top slice: with zero bias rows, level_forward on a
+    random level below equals a plain cross-correlation over the unmasked
+    top-slice taps."""
+    shape, K, kf = (2, 5, 9), 5, 8
+    _, _, _, tm, tcfg = _models(K, kf=kf, seed=5)
+    coder = tpcodec.PlanarCoder(tm, tcfg, device='cpu')
+    sched, fold = coder._prepare(shape, torch.from_numpy(CENTERS))
+    rng = np.random.RandomState(level)
+    gs, gl = sched.grids[level - 1], sched.grids[level]
+    cin, cout = (1 if level == 1 else kf), (L if level == 4 else kf)
+    src = torch.from_numpy(rng.randn(3, *gs, cin).astype(np.float32))
+    bias = torch.zeros(3, *gl, cout)
+    skip = torch.from_numpy(rng.randn(3, *sched.grids[1], kf).astype(np.float32))
+    out = tplk.level_forward(level, fold.top, shape, K, src[..., 0] if level == 1 else src,
+                             bias, skip=skip if level == 3 else None)
+    w = fold.top[level - 1]
+    ref = torch.zeros(3, *gl, cout, dtype=torch.float64)
+    for k, (dy, dx) in enumerate(sched.taps[level - 1]):
+        ref += src[:, dy:dy + gl[0], dx:dx + gl[1]].double() @ w[k].double()
+    if level == 3:
+        ref = ref + skip[:, K - 1:K - 1 + gl[0], K - 1:K - 1 + gl[1]].double()
+    else:
+        ref = torch.relu(ref)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
