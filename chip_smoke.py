@@ -22,7 +22,11 @@ Phases, one line each:
      Kernel 2's layer-parallel encode likewise equals its scan on every
      entry; decode is timed with the image over clusters of 8 and of 1
      blocks; both codecs decode B = 1, 3 and 17 images and write the same
-     streams at B = 3 as at B = 1;
+     streams at B = 3 as at B = 1. Kernels 3 and 6 (the reverse encoder)
+     are byte-identical to their plain versions at B=16, give the first
+     three images the same outputs at B = 3 and B = 1, and print their clock
+     profile (clocks a non-empty sub-iteration and those in its state
+     update, the shares spent waiting) beside their chain floor;
   4. the K=3 main path: B=16 natural-statistics 512x768 images with the
      trained model (assets/demo_trained_low_9000.npz): AE encode ->
      kernel 2 encode (layer-parallel) -> kernel 3 -> container serialize -> parse -> kernel 2
@@ -56,6 +60,12 @@ import numpy as np
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
 FADD_LATENCY_CLOCKS = 4         # dependent f32 add to add, Hopper
+ALU_LATENCY_CLOCKS = 4          # dependent integer ALU op to op, Hopper
+# Dependent instructions of one sub-iteration's state update in the SASS of
+# csrc/rans_reverse.cu (cuobjdump -sass of the sm_90a build): ISETP (emit),
+# SHF (renorm, predicated), IMAD.HI (quotient), IMAD (remainder), ISETP
+# (correction), IADD (predicated correction).
+REVERSE_CHAIN_INSTRS = 6
 ASSET = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'assets',
                      'demo_trained_low_9000.npz')
 BATCH, IMG_H, IMG_W = 16, 512, 768
@@ -115,6 +125,69 @@ def chain_floor_ms(adds_per_step, steps, sm_mhz):
     """The least a scan can take on one image with today's summation order:
     its dependent adds at the card's add latency and top SM clock."""
     return adds_per_step * steps * FADD_LATENCY_CLOCKS / (sm_mhz * 1e3)
+
+
+def same_reverse(a, b, pairs):
+    """Whether two reverse encoders' outputs (words, n_words, states, k)
+    agree byte for byte on image i of a and image j of b for (i, j) in
+    pairs."""
+    import torch
+    wa, na, sa, ka = a
+    wb, nb, sb, kb = b
+    return all(int(na[i]) == int(nb[j]) and torch.equal(wa[i, :na[i]], wb[j, :nb[j]])
+               and torch.equal(sa[i], sb[j]) and torch.equal(ka[i], kb[j])
+               for i, j in pairs)
+
+
+def reverse_kernel(label, run, plain, fsel, ssel, x0, sm_mhz):
+    """Phase 3 for kernel 3 or 6 on the B-image tables of the main path:
+    ``run(fsel, ssel, x0, prof=None)`` (the wrapper) byte-identical to
+    ``plain(fsel, ssel, x0)``; the first three images run as a batch of 3
+    and one by one give their B-image outputs; a run with the clock profile
+    gives the same outputs. Returns (outputs, plain outputs, plain ms,
+    kernel ms, profile: rows run, mean clocks a non-empty sub-iteration,
+    clocks of it in the state updates, shares of the chain warp's clocks
+    that it, the producer warps and the writer warp spent waiting, chain
+    floor ms)."""
+    import torch
+    B = fsel.shape[0]
+    out = run(fsel, ssel, x0)
+    plain_ms, ref = host_ms(lambda: plain(fsel, ssel, x0))
+    if not same_reverse(out, ref, [(i, i) for i in range(B)]):
+        raise AssertionError(f'{label}: output differs from the plain version')
+    three = run(fsel[:3], ssel[:3], x0)
+    if not (same_reverse(three, out, [(i, i) for i in range(3)])
+            and all(same_reverse(run(fsel[i:i + 1], ssel[i:i + 1], x0), out, [(0, i)])
+                    for i in range(3))):
+        raise AssertionError(f'{label}: B=3 or B=1 outputs differ from the B={B} run\'s')
+    from imgcomp_cvpr_tpu_torch.coding import cuda_kernel as ck
+    prof = torch.zeros(B, ck.REVERSE_PROF, dtype=torch.int64, device=fsel.device)
+    if not same_reverse(run(fsel, ssel, x0, prof), out, [(i, i) for i in range(B)]):
+        raise AssertionError(f'{label}: outputs differ with the clock profile on')
+    p = prof.double()
+    rows_run = int(prof[0, 2].item())
+    if rows_run < 1 or (prof[:, 2] != rows_run).any():
+        raise AssertionError(f'{label}: profile counts {prof[:, 2].tolist()} sub-iterations')
+    stats = dict(rows=rows_run, clocks=(p[:, 0] / p[:, 2]).mean().item(),
+                 wait=(p[:, 1] / p[:, 0]).mean().item(),
+                 producer_wait=((p[:, 3] + p[:, 4]) / (2 * p[:, 0])).mean().item(),
+                 writer_wait=(p[:, 5] / p[:, 0]).mean().item(),
+                 update=(p[:, 6] / p[:, 2]).mean().item(),
+                 floor_ms=REVERSE_CHAIN_INSTRS * ALU_LATENCY_CLOCKS * rows_run / (sm_mhz * 1e3))
+    return out, ref, plain_ms, cuda_ms(lambda: run(fsel, ssel, x0), 3), stats
+
+
+def reverse_line(label, B, nw, ms, stats, sm_mhz):
+    return (f'[3 {label}] words/n_words/states/k byte-identical to the plain version at '
+            f'B={B} ({nw} words); B=3 and B=1 outputs equal the B={B} run\'s; {ms:.3f} ms; '
+            f'profile (mean over the images): {stats["rows"]} non-empty sub-iterations, '
+            f'{stats["clocks"]:.1f} clocks each, of which {stats["update"]:.1f} in the state '
+            f'updates; {100 * stats["wait"]:.2f}% of the chain warp\'s clocks waiting for '
+            f'tiles (the producer warps wait {100 * stats["producer_wait"]:.2f}% of as many '
+            f'clocks, the writer warp {100 * stats["writer_wait"]:.2f}%); chain floor '
+            f'{stats["floor_ms"]:.4f} ms '
+            f'({REVERSE_CHAIN_INSTRS} dependent instructions x {ALU_LATENCY_CLOCKS} clocks x '
+            f'{stats["rows"]} sub-iterations at {sm_mhz} MHz)')
 
 
 def library_logits_ms(pc, centers, syms):
@@ -249,24 +322,21 @@ def planar_kernels(dev, syms, centers, pc5, pc5_config, rows, sm_mhz):
     fsel = fsel.reshape(B, -1, planar.R)
     ssel = ssel.reshape(B, -1, planar.R)
     x0 = 1
-    w_k, n_k, st_k, k_k = plk.plane_reverse(fsel, ssel, shape, K, x0)
-    rev_plain_ms, (w_p, n_p, st_p, k_p) = host_ms(
-        lambda: plk.plane_reverse_plain(fsel, ssel, shape, K, x0))
-    if not (torch.equal(n_k, n_p) and torch.equal(st_k, st_p) and torch.equal(k_k, k_p)
-            and all(torch.equal(w_k[i, :n_k[i]], w_p[i, :n_p[i]]) for i in range(B))):
-        raise AssertionError('plane_reverse: output differs from the plain version')
+    (w_k, n_k, st_k, k_k), (w_p, n_p, _, _), rev_plain_ms, rev_ms, stats = reverse_kernel(
+        'plane_reverse',
+        lambda f, s, x, prof=None: plk.plane_reverse(f, s, shape, K, x, prof),
+        lambda f, s, x: plk.plane_reverse_plain(f, s, shape, K, x), fsel, ssel, x0, sm_mhz)
     nw = int(n_k.sum().item())
     rows['plane_reverse'] = dict(
         route='cuda', source='imgcomp_cvpr_tpu_torch/csrc/rans_reverse.cu',
         replaces='imgcomp_cvpr_tpu/coding/planar_kernel.py:540',
         max_abs_err=float(max((w_k[i, :n_k[i]] - w_p[i, :n_p[i]]).abs().max().item()
                               for i in range(B) if n_k[i] > 0)),
-        ms=cuda_ms(lambda: plk.plane_reverse(fsel, ssel, shape, K, x0), 3),
-        plain_ms=rev_plain_ms,
+        ms=rev_ms, plain_ms=rev_plain_ms,
         bound=bound(2 * 4 * fsel.numel() + 4 * nw + 8 * planar.R * B, 0),
         library_ms=None)
-    print(f'[3 plane_reverse] words/n_words/states/k byte-identical to the plain '
-          f'version over {C} x {sched.T2} rows ({nw} words)', flush=True)
+    print(reverse_line('plane_reverse', B, nw, rev_ms, stats, sm_mhz)
+          + f' over {C} x {sched.T2} rows', flush=True)
 
     # Decode every plane through kernel 5 from kernel 6's streams.
     streams = torch.zeros(B, sched.stream_cap, dtype=torch.int32, device=dev)
@@ -748,23 +818,19 @@ def main():
           f'CDF, no selection) on the same symbols {lib3_ms:.3f} ms', flush=True)
 
     x0 = 1
-    w_k, n_k, st_k, k_k = ck.rans_reverse(f_k, s_k, shape, x0)
-    w_p, n_p, st_p, k_p = ck.rans_reverse_plain(f_k, s_k, shape, x0)
-    if not (torch.equal(n_k, n_p) and torch.equal(st_k, st_p) and torch.equal(k_k, k_p)
-            and all(torch.equal(w_k[i, :n_k[i]], w_p[i, :n_p[i]]) for i in range(BATCH))):
-        raise AssertionError('rans_reverse: output differs from the plain version')
-    rev_plain_ms, _ = host_ms(lambda: ck.rans_reverse_plain(f_k, s_k, shape, x0))
+    (w_k, n_k, st_k, k_k), (w_p, n_p, _, _), rev_plain_ms, rev_ms, stats = reverse_kernel(
+        'rans_reverse', lambda f, s, x, prof=None: ck.rans_reverse(f, s, shape, x, prof),
+        lambda f, s, x: ck.rans_reverse_plain(f, s, shape, x), f_k, s_k, x0, sm_mhz)
     rows['rans_reverse'] = dict(
         route='cuda', source='imgcomp_cvpr_tpu_torch/csrc/rans_reverse.cu',
         replaces='imgcomp_cvpr_tpu/coding/pallas_kernel.py:1362',
         max_abs_err=float(max((w_k[i, :n_k[i]] - w_p[i, :n_p[i]]).abs().max().item()
                               for i in range(BATCH) if n_k[i] > 0)),
-        ms=cuda_ms(lambda: ck.rans_reverse(f_k, s_k, shape, x0), 3),
-        plain_ms=rev_plain_ms,
+        ms=rev_ms, plain_ms=rev_plain_ms,
         bound=bound(table_bytes + 4 * int(n_k.sum().item()) + 8 * 32 * BATCH, 0),
         library_ms=None)
-    print(f'[3 rans_reverse] words/n_words/states/k byte-identical to the plain '
-          f'version ({int(n_k.sum().item())} words)', flush=True)
+    print(reverse_line('rans_reverse', BATCH, int(n_k.sum().item()), rev_ms, stats, sm_mhz),
+          flush=True)
 
     thresh = (torch.from_numpy(ck.lane_totals(sched)).to(dev)[None] - k_k).int().contiguous()
     streams = torch.zeros(BATCH, sched.stream_cap, dtype=torch.int32, device=dev)

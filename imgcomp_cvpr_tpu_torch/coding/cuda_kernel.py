@@ -31,7 +31,9 @@ cells of step t, then the step's rANS lanes; mode 0 (decode) runs the
 sequential 32-lane interleaved rANS decode, mode 1 is the teacher-forced
 scan kept as the encode's consistency oracle. All of them compute logits and
 CDFs with the same two device functions. Kernel 3 (csrc/rans_reverse.cu, one
-warp per image) is the reverse interleaved rANS encoder.
+block per image: a chain warp fed by two producer warps and drained by a
+writer warp) is the reverse interleaved rANS encoder; it walks a host-built
+list of the non-empty sub-iterations (reverse_list).
 """
 
 from __future__ import annotations
@@ -646,6 +648,75 @@ def scan_cluster(kf: int, L: int, CQ: int, T: int, B: int) -> int:
 # Kernel 3: reverse interleaved rANS encoder
 # ---------------------------------------------------------------------------
 
+def reverse_list(active: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The non-empty R-lane sub-iterations of an activity table in coding
+    order (last first), as kernels 3 and 6 walk them. active (rows, W) bool
+    with W a multiple of R, viewed as (rows * W / R, R) lane rows -> (row
+    (E,) int32: index of the lane row, mask (E,) uint32: bit l set where
+    lane l is active)."""
+    a = np.asarray(active, bool).reshape(-1, R)
+    bits = (a.astype(np.uint64) << np.arange(R, dtype=np.uint64)).sum(1)
+    rows = np.nonzero(bits)[0][::-1]
+    return rows.astype(np.int32), bits[rows].astype(np.uint32)
+
+
+REVERSE_LIST_PAD = 32   # the kernel's tiles of list entries divide this
+REVERSE_PROF = 7        # profile columns an image (NPROF in csrc/rans_reverse.cu)
+
+
+class ReverseList(NamedTuple):
+    E: int                 # non-empty sub-iterations
+    row: torch.Tensor      # (E padded,) int32 lane row of each; padding row 0
+    mask: torch.Tensor     # (E padded,) int32 its lane mask (uint32 bits); padding 0
+
+
+def reverse_list_to(active: np.ndarray, device: str) -> ReverseList:
+    """reverse_list on the device, padded with empty entries (row 0, mask 0)
+    to a multiple of REVERSE_LIST_PAD so that the kernel stages whole
+    tiles."""
+    rows, masks = reverse_list(active)
+    E = len(rows)
+    n = _round_up(max(E, 1), REVERSE_LIST_PAD)
+    row_p, mask_p = np.zeros(n, np.int32), np.zeros(n, np.uint32)
+    row_p[:E], mask_p[:E] = rows, masks
+    return ReverseList(E, torch.from_numpy(row_p).to(device),
+                       torch.from_numpy(mask_p.view(np.int32)).to(device))
+
+
+@functools.lru_cache(maxsize=8)
+def device_reverse_list(latent_shape: Tuple[int, int, int], device: str) -> ReverseList:
+    sched = build_schedule(latent_shape)
+    return reverse_list_to(sched.idx_cm < int(np.prod(sched.latent_shape)), device)
+
+
+def _rdiv_q0(x: np.ndarray, f: np.ndarray) -> np.ndarray:
+    """floor(x m / 2^32) with the reciprocal m = floor((2^32 - 1) / f): x // f
+    or one less."""
+    return (x * (np.uint64(0xFFFFFFFF) // f)) >> np.uint64(32)
+
+
+def rdiv_divmod(x: np.ndarray, f: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """x // f and x % f as csrc/rans_reverse.cu's rdiv_update finds them: the
+    quotient from the reciprocal, and one correction. x uint32-valued, f in
+    [1, 65536]; uint64 out."""
+    x, f = (np.asarray(v, np.uint64) for v in (x, f))
+    q0 = _rdiv_q0(x, f)
+    fix = x - q0 * f >= f
+    return q0 + fix, x - (q0 + fix) * f
+
+
+def rdiv_update(x: np.ndarray, f: np.ndarray, s: np.ndarray) -> np.ndarray:
+    """Numpy twin of rdiv_update in csrc/rans_reverse.cu: ((x // f) << 16) +
+    (x % f) + s mod 2^32 as q0 (65536 - f) + x + s, plus 65536 - f where
+    the quotient needs its correction. x, s uint32-valued, f in [1, 65536]."""
+    x, f, s = (np.asarray(v, np.uint64) for v in (x, f, s))
+    mask = np.uint64(0xFFFFFFFF)
+    q0 = _rdiv_q0(x, f)
+    g = np.uint64(65536) - f
+    y = (q0 * g + x + s) & mask
+    return np.where(x - q0 * f >= f, (y + g) & mask, y)
+
+
 def reverse_plain(fsel: torch.Tensor, ssel: torch.Tensor, active: np.ndarray,
                   cap: int, x0: int = rans.RANS_L):
     """Reverse interleaved rANS over any (rows, CQ) activity table: walk rows
@@ -673,31 +744,67 @@ def reverse_plain(fsel: torch.Tensor, ssel: torch.Tensor, active: np.ndarray,
     return words.int(), gw.int(), to_int32_bits(states), kw.int()
 
 
-def reverse_launch(fsel: torch.Tensor, ssel: torch.Tensor, idx_cm: torch.Tensor,
-                   n: int, cap: int, x0: int):
-    """Launch csrc/rans_reverse.cu on (B, T, CQ) int32 CUDA tables; a lane
-    (t, c) is active where idx_cm[t, c] < n. Same outputs as reverse_plain.
+def reverse_plain_list(fsel: torch.Tensor, ssel: torch.Tensor, rows: np.ndarray,
+                       masks: np.ndarray, cap: int, x0: int = rans.RANS_L):
+    """reverse_plain driven by a reverse_list (rows, masks) instead of an
+    activity table: runs exactly the listed lane rows of the (B, ..., W)
+    tables, in list order, with the listed lanes active. Same outputs."""
+    dev = fsel.device
+    B = fsel.shape[0]
+    f_all, s_all = fsel.reshape(B, -1, R).long(), ssel.reshape(B, -1, R).long()
+    lane_bits = torch.tensor([1 << l for l in range(R)], dtype=torch.long, device=dev)
+    words = torch.zeros(B, cap, dtype=torch.long, device=dev)
+    states = torch.full((B, R), x0, dtype=torch.long, device=dev)
+    gw = torch.zeros(B, dtype=torch.long, device=dev)
+    kw = torch.zeros(B, R, dtype=torch.long, device=dev)
+    for row, mask in zip(np.asarray(rows).tolist(), np.asarray(masks, np.uint32).tolist()):
+        a = (lane_bits & mask) != 0
+        states, gw, kw = rans.encode_reverse_step_interleaved(
+            states, gw, kw, f_all[:, row], s_all[:, row], a[None].expand(B, R), words,
+            x0 < rans.RANS_L)
+    return words.int(), gw.int(), to_int32_bits(states), kw.int()
+
+
+def reverse_launch(fsel: torch.Tensor, ssel: torch.Tensor, rlist: ReverseList,
+                   cap: int, x0: int, prof: Optional[torch.Tensor] = None):
+    """Launch csrc/rans_reverse.cu on (B, T, W) int32 CUDA tables (W a
+    multiple of R) over the non-empty lane rows of ``rlist``. Same outputs
+    as reverse_plain. ``prof`` (B, REVERSE_PROF) int64 on the device
+    receives, per image: the chain warp's clocks, its clocks waiting for
+    tiles, the sub-iterations run, the two producer warps' and the writer
+    warp's clocks waiting, and the chain warp's clocks in its state updates.
     Counts no launch: each caller counts its own."""
     if not 1 <= x0 <= rans.RANS_L:
         raise ValueError(f'x0 must be in [1, RANS_L], got {x0}')
     dev = fsel.device
-    B, T, CQ = fsel.shape
+    B, T, W = fsel.shape
+    if W % R:
+        raise ValueError(f'table width {W} is not a multiple of {R}')
     i32 = torch.int32
-    _check_cuda('fsel', fsel, i32, (B, T, CQ), dev)
-    _check_cuda('ssel', ssel, i32, (B, T, CQ), dev)
-    _check_cuda('idx_cm', idx_cm, i32, (T, CQ), dev)
+    E, n = rlist.E, rlist.row.shape[0]
+    if n % REVERSE_LIST_PAD or n < E:
+        raise ValueError(f'list of {n} entries is not {E} padded to whole tiles')
+    _check_cuda('fsel', fsel, i32, (B, T, W), dev)
+    _check_cuda('ssel', ssel, i32, (B, T, W), dev)
+    _check_cuda('list row', rlist.row, i32, (n,), dev)
+    _check_cuda('list mask', rlist.mask, i32, (n,), dev)
+    if prof is not None:
+        _check_cuda('prof', prof, torch.int64, (B, REVERSE_PROF), dev)
+    for name, t in (('fsel', fsel), ('ssel', ssel)):
+        if t.data_ptr() % 16:
+            raise ValueError(f'{name} must be 16-byte aligned (16-byte copies)')
     words = torch.empty(B, cap, dtype=i32, device=dev)
     n_words = torch.empty(B, dtype=i32, device=dev)
     states = torch.empty(B, R, dtype=i32, device=dev)
     kw = torch.empty(B, R, dtype=i32, device=dev)
     fn = build.load('rans_reverse').rans_reverse
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_uint] + [ctypes.c_void_p] * 8
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_uint] + [ctypes.c_void_p] * 10
     fn.restype = ctypes.c_int
     p = build.ptr
     with torch.cuda.device(dev):
-        err = fn(B, T, CQ, n, cap, x0, p(idx_cm), p(fsel), p(ssel), p(words),
-                 p(n_words), p(states), p(kw), build.stream_ptr(dev))
+        err = fn(B, T * W // R, E, cap, x0, p(rlist.row), p(rlist.mask), p(fsel),
+                 p(ssel), p(words), p(n_words), p(states), p(kw),
+                 None if prof is None else p(prof), build.stream_ptr(dev))
     build.check(err, 'rans_reverse')
     return words, n_words, states, kw
 
@@ -712,8 +819,10 @@ def rans_reverse_plain(fsel: torch.Tensor, ssel: torch.Tensor,
 
 
 def rans_reverse(fsel: torch.Tensor, ssel: torch.Tensor,
-                 latent_shape: Tuple[int, int, int], x0: int = rans.RANS_L):
-    """Kernel 3 wrapper; same contract as rans_reverse_plain."""
+                 latent_shape: Tuple[int, int, int], x0: int = rans.RANS_L,
+                 prof: Optional[torch.Tensor] = None):
+    """Kernel 3 wrapper; same contract as rans_reverse_plain. ``prof`` as in
+    reverse_launch (CUDA only)."""
     if not 1 <= x0 <= rans.RANS_L:
         raise ValueError(f'x0 must be in [1, RANS_L], got {x0}')
     if fsel.device.type == 'cpu':
@@ -721,8 +830,7 @@ def rans_reverse(fsel: torch.Tensor, ssel: torch.Tensor,
     if fsel.device.type != 'cuda':
         raise ValueError(f'rans_reverse: unsupported device {fsel.device}')
     sched = build_schedule(latent_shape)
-    tabs = device_tables(sched.latent_shape, str(fsel.device))
-    out = reverse_launch(fsel, ssel, tabs.idx_cm, int(np.prod(sched.latent_shape)),
-                         sched.stream_cap, x0)
+    out = reverse_launch(fsel, ssel, device_reverse_list(sched.latent_shape, str(fsel.device)),
+                         sched.stream_cap, x0, prof)
     build.LAUNCHES['rans_reverse'] += 1
     return out

@@ -24,8 +24,8 @@ with separately rounded multiplies and adds; the plain versions repeat
 exactly those roundings.
 
 Kernel 6 is csrc/rans_reverse.cu (kernel 3) driven over the planar
-(C * T2, R) activity table with S = 1 chunk per row; it has its own launch
-counter and plain version here.
+(C * T2, R) rows (S = 1 chunk per row) through the host-built list of the
+non-empty rows; it has its own launch counter and plain version here.
 """
 
 from __future__ import annotations
@@ -440,10 +440,9 @@ def _full_active(sched: planar.PlanarSchedule) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=8)
-def _full_idx_cm(latent_shape, K: int, device: str) -> torch.Tensor:
-    sched = planar.build_planar_schedule(latent_shape, K)
-    C = sched.latent_shape[0]
-    return torch.from_numpy(np.tile(sched.idx_cm, (C, 1))).to(device)
+def _device_reverse_list(latent_shape, K: int, device: str) -> ck.ReverseList:
+    return ck.reverse_list_to(_full_active(planar.build_planar_schedule(latent_shape, K)),
+                              device)
 
 
 def plane_reverse_plain(fsel: torch.Tensor, ssel: torch.Tensor,
@@ -459,8 +458,9 @@ def plane_reverse_plain(fsel: torch.Tensor, ssel: torch.Tensor,
 
 def plane_reverse(fsel: torch.Tensor, ssel: torch.Tensor,
                   latent_shape: Tuple[int, int, int], K: int,
-                  x0: int = rans.RANS_L):
-    """Kernel 6 wrapper; same contract as plane_reverse_plain."""
+                  x0: int = rans.RANS_L, prof: Optional[torch.Tensor] = None):
+    """Kernel 6 wrapper; same contract as plane_reverse_plain. ``prof`` as in
+    ck.reverse_launch (CUDA only)."""
     if not 1 <= x0 <= rans.RANS_L:
         raise ValueError(f'x0 must be in [1, RANS_L], got {x0}')
     if fsel.device.type == 'cpu':
@@ -468,8 +468,7 @@ def plane_reverse(fsel: torch.Tensor, ssel: torch.Tensor,
     if fsel.device.type != 'cuda':
         raise ValueError(f'plane_reverse: unsupported device {fsel.device}')
     sched = planar.build_planar_schedule(latent_shape, K)
-    _, H, W = sched.latent_shape
-    out = ck.reverse_launch(fsel, ssel, _full_idx_cm(sched.latent_shape, K, str(fsel.device)),
-                            H * W, sched.stream_cap, x0)
+    rlist = _device_reverse_list(sched.latent_shape, K, str(fsel.device))
+    out = ck.reverse_launch(fsel, ssel, rlist, sched.stream_cap, x0, prof)
     build.LAUNCHES['plane_reverse'] += 1
     return out

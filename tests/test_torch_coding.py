@@ -5,6 +5,8 @@ JAX runs its Pallas kernels in interpret mode, as its own tests do; the port
 runs the plain PyTorch versions of its CUDA kernels (a CPU tensor).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -126,15 +128,23 @@ def test_plain_forward_tables_match_pallas(shape):
     assert flips.sum() <= limit, (flips.sum(), act.sum() * 2)
 
 
-@pytest.mark.parametrize('x0', [1, jrans.RANS_L])
-@pytest.mark.parametrize('shape', [(4, 6, 7), (9, 5, 6)])
-def test_plain_reverse_byte_identical_to_pallas(shape, x0):
+@functools.lru_cache(maxsize=None)
+def _jax_reverse(shape, x0):
+    """JAX interpret-mode tables of B=2 random symbol volumes and
+    make_reverse's (words, n_words, states, k) on them, made once per
+    (shape, x0) for the tests that hold the port's reverse encoders to it."""
     jm, cfg, params, tm, tcfg, centers = _setup(shape, seed=3)
     b = 2
     syms = np.random.RandomState(3).randint(0, 6, (b,) + shape)
     _, tables, jf, js, jf_full, js_full = _jax_tables(jm, cfg, params, centers, syms)
     rev, _ = pk.make_reverse(shape, b, bsub=1, interpret=True, x0=x0)
-    jw, jn, jst, jk = (np.asarray(a) for a in rev(tables, jf_full, js_full))
+    return b, jf, js, tuple(np.asarray(a) for a in rev(tables, jf_full, js_full))
+
+
+@pytest.mark.parametrize('x0', [1, jrans.RANS_L])
+@pytest.mark.parametrize('shape', [(4, 6, 7), (9, 5, 6)])
+def test_plain_reverse_byte_identical_to_pallas(shape, x0):
+    b, jf, js, (jw, jn, jst, jk) = _jax_reverse(shape, x0)
     tw, tn, tst, tk = ck.rans_reverse_plain(torch.from_numpy(jf), torch.from_numpy(js),
                                             shape, x0)
     np.testing.assert_array_equal(tn.numpy(), jn.reshape(b))
@@ -155,6 +165,71 @@ def test_plain_reverse_byte_identical_to_pallas(shape, x0):
         np.testing.assert_array_equal(tst[i].numpy().view(np.uint32), st)
         np.testing.assert_array_equal(tk[i].numpy(), k)
         assert sum(len(w) for w in streams) == int(tn[i])
+
+
+@pytest.mark.parametrize('x0', [1, jrans.RANS_L])
+@pytest.mark.parametrize('shape', [(4, 6, 7), (9, 5, 6)])
+def test_plain_list_walker_byte_identical_to_pallas(shape, x0):
+    """The plain walker over the host-built list of non-empty
+    sub-iterations (what kernel 3 runs) writes make_reverse's words, word
+    counts, final states and warmups."""
+    b, jf, js, (jw, jn, jst, jk) = _jax_reverse(shape, x0)
+    sched = ck.build_schedule(shape)
+    rows, masks = ck.reverse_list(sched.idx_cm < np.prod(shape))
+    tw, tn, tst, tk = ck.reverse_plain_list(torch.from_numpy(jf), torch.from_numpy(js), rows,
+                                            masks, sched.stream_cap, x0)
+    np.testing.assert_array_equal(tn.numpy(), jn.reshape(b))
+    for i in range(b):
+        np.testing.assert_array_equal(tw[i, :tn[i]].numpy(), jw[i].reshape(-1)[:jn[i, 0, 0]])
+    np.testing.assert_array_equal(tst.numpy().view(np.uint32), jst.reshape(b, pk.R))
+    np.testing.assert_array_equal(tk.numpy(), jk.reshape(b, pk.R))
+
+
+# (16, 24, 36): T = 526 steps of S = 4 sub-iterations; the Kodak latent
+# (32, 64, 96): T = 1186, S = 12, of whose 14,232 sub-iterations 9,172 have an
+# active lane (21.4 active lanes each on average).
+@pytest.mark.parametrize('shape,count', [((16, 24, 36), 902), ((32, 64, 96), 9172)])
+def test_reverse_list_is_the_active_sub_iterations(shape, count):
+    """The list kernel 3 walks is {(t, si): active[t, si*32:(si+1)*32].any()}
+    in reverse coding order, each with the exact lane mask."""
+    sched = ck.build_schedule(shape)
+    active = sched.idx_cm < np.prod(shape)
+    rows, masks = ck.reverse_list(active)
+    S = sched.CQ // ck.R
+    want = [(t, si) for t in range(sched.T - 1, -1, -1) for si in range(S - 1, -1, -1)
+            if active[t, si * ck.R:(si + 1) * ck.R].any()]
+    assert len(rows) == len(want) == count
+    assert list(zip((rows // S).tolist(), (rows % S).tolist())) == want
+    assert rows.dtype == np.int32 and masks.dtype == np.uint32
+    bits = np.unpackbits(masks.view(np.uint8), bitorder='little').reshape(-1, ck.R)
+    np.testing.assert_array_equal(bits.astype(bool), active.reshape(-1, ck.R)[rows])
+
+
+def test_reciprocal_division_is_exact():
+    """The numpy twin of kernel 3's division by a reciprocal equals // and %
+    (and its state update the update written with them) for every f in
+    [1, 65536] at the boundary dividends f<<16 - 1, 2^32 - 1, 0, 1, f - 1,
+    f, f + 1, for every dividend 0..f of f <= 2048, and on 10^6 random
+    (x, f) pairs with x < f<<16 and 10^6 with any uint32 x."""
+    mask = np.uint64(0xFFFFFFFF)
+    f = np.arange(1, 65537, dtype=np.uint64)
+    xs = [np.minimum((f << np.uint64(16)) - np.uint64(1), mask), np.full_like(f, mask)]
+    xs += [f * np.uint64(0) + np.uint64(v) for v in (0, 1)]
+    xs += [f - np.uint64(1), f, f + np.uint64(1)]
+    cases = [(x, f) for x in xs]
+    cases.append((np.concatenate([np.arange(v + 1) for v in range(1, 2049)]).astype(np.uint64),
+                  np.concatenate([np.full(v + 1, v) for v in range(1, 2049)]).astype(np.uint64)))
+    rng = np.random.RandomState(0)
+    fr = rng.randint(1, 65537, 10 ** 6).astype(np.uint64)
+    cases.append(((rng.randint(0, 1 << 62, 10 ** 6).astype(np.uint64) % (fr << np.uint64(16))), fr))
+    cases.append((rng.randint(0, 1 << 32, 10 ** 6).astype(np.uint64), fr))
+    for x, fv in cases:
+        q, r = ck.rdiv_divmod(x, fv)
+        np.testing.assert_array_equal(q, x // fv)
+        np.testing.assert_array_equal(r, x % fv)
+        s = (x * np.uint64(2654435761)) & np.uint64(0xFFFF)
+        want = (((x // fv) << np.uint64(16)) + x % fv + s) & mask
+        np.testing.assert_array_equal(ck.rdiv_update(x, fv, s), want)
 
 
 @pytest.mark.parametrize('tail', [False, True])

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from imgcomp_cvpr_tpu_torch.coding import codec, cuda_codec, cuda_kernel as ck, rans
-from imgcomp_cvpr_tpu_torch.coding import planar_codec, planar_kernel as plk
+from imgcomp_cvpr_tpu_torch.coding import planar, planar_codec, planar_kernel as plk
 from imgcomp_cvpr_tpu_torch.models import probclass as pcl
 from imgcomp_cvpr_tpu_torch.models import quantizer as quantizer_lib
 from imgcomp_cvpr_tpu_torch.training import trainer as trainer_lib
@@ -263,6 +263,88 @@ def test_plane_reverse_kernel_byte_identical(cuda_device, x0):
     for i in range(3):
         assert torch.equal(wk[i, :nk[i]], wp[i, :npl[i]])
     assert torch.equal(stk, stp) and torch.equal(kk, kp)
+
+
+# ---------------------------------------------------------------------------
+# Kernels 3 and 6: the list-driven reverse encoder on synthetic tables
+# ---------------------------------------------------------------------------
+
+def _reverse_case(kind, shape):
+    """(active (rows, W) bool, run(fsel, ssel, x0, prof), plain(fsel, ssel,
+    x0), cap, rlist) of kernel 3 at a K=3 latent or kernel 6 at a K=5 one."""
+    if kind == 'k3':
+        sched = ck.build_schedule(shape)
+        active = sched.idx_cm < int(np.prod(shape))
+        return (active, lambda f, s, x0, prof=None: ck.rans_reverse(f, s, shape, x0, prof),
+                lambda f, s, x0: ck.rans_reverse_plain(f, s, shape, x0), sched.stream_cap,
+                lambda dev: ck.device_reverse_list(shape, str(dev)))
+    sched = planar.build_planar_schedule(shape, 5)
+    return (plk._full_active(sched),
+            lambda f, s, x0, prof=None: plk.plane_reverse(f, s, shape, 5, x0, prof),
+            lambda f, s, x0: plk.plane_reverse_plain(f, s, shape, 5, x0), sched.stream_cap,
+            lambda dev: plk._device_reverse_list(shape, 5, str(dev)))
+
+
+def _reverse_tables(active, b, seed, device):
+    """Valid (f, s) on active lanes (f log-uniform in [1, 65530], s + f <=
+    65536), garbage on inactive ones: 0, negatives, values past 2^16."""
+    rng = np.random.RandomState(seed)
+    size = (b,) + active.shape
+    f = np.exp(rng.uniform(0, np.log(65530), size)).astype(np.int64).clip(1, 65530)
+    s = (rng.uniform(0, 1, size) * (65537 - f)).astype(np.int64).clip(0, 65536 - f)
+    junk = np.array([0, -1, -7, -65536, 65536, 1 << 20, 2 ** 31 - 1, -2 ** 31], np.int64)
+    f = np.where(active, f, junk[rng.randint(0, len(junk), size)])
+    s = np.where(active, s, junk[rng.randint(0, len(junk), size)])
+    return (torch.from_numpy(f.astype(np.int32)).to(device),
+            torch.from_numpy(s.astype(np.int32)).to(device))
+
+
+def _same_streams(a, b, images):
+    wa, na, sa, ka = a
+    wb, nb, sb, kb = b
+    for i, j in images:
+        assert int(na[i]) == int(nb[j])
+        assert torch.equal(wa[i, :na[i]], wb[j, :nb[j]])
+        assert torch.equal(sa[i], sb[j]) and torch.equal(ka[i], kb[j])
+
+
+# (9, 5, 6) has 226 non-empty sub-iterations, (3, 12, 20) 357 rows: neither a
+# multiple of the 32-entry tile; (3, 8, 8) has 192, a multiple.
+@pytest.mark.parametrize('x0', [1, rans.RANS_L])
+@pytest.mark.parametrize('kind,shape', [('k3', (9, 5, 6)), ('k3', (6, 10, 12)),
+                                        ('k6', (3, 12, 20)), ('k6', (3, 8, 8))])
+def test_reverse_kernel_list_any_batch(cuda_device, kind, shape, x0):
+    """Kernels 3 and 6 against their plain version byte for byte at B = 17
+    on tables whose inactive entries hold garbage; B = 1 and B = 3 runs give
+    each image the outputs it had at B = 17; a run with the clock profile
+    gives the same outputs and counts the listed sub-iterations."""
+    active, run, plain, _, rlist = _reverse_case(kind, shape)
+    fsel, ssel = _reverse_tables(active, 17, seed=11, device=cuda_device)
+    out = run(fsel, ssel, x0)
+    _same_streams(out, plain(fsel, ssel, x0), [(i, i) for i in range(17)])
+    for b in (1, 3):
+        _same_streams(run(fsel[:b].contiguous(), ssel[:b].contiguous(), x0), out,
+                      [(i, i) for i in range(b)])
+    prof = torch.zeros(17, ck.REVERSE_PROF, dtype=torch.int64, device=cuda_device)
+    _same_streams(run(fsel, ssel, x0, prof), out, [(i, i) for i in range(17)])
+    assert (prof[:, 2] == rlist(cuda_device).E).all()
+    assert (prof[:, 0] > 0).all() and (prof >= 0).all()
+    assert (prof[:, 1] <= prof[:, 0]).all()
+
+
+@pytest.mark.parametrize('kind,shape', [('k3', (9, 5, 6)), ('k6', (3, 12, 20))])
+def test_reverse_kernel_drops_words_past_cap(cuda_device, kind, shape):
+    """A cap below the word count: the words that fit are the plain
+    version's, the rest are dropped but counted in n_words."""
+    active, run, _, stream_cap, rlist = _reverse_case(kind, shape)
+    fsel, ssel = _reverse_tables(active, 3, seed=12, device=cuda_device)
+    n_full = run(fsel, ssel, 1)[1]
+    cap = int(n_full.min()) // 2
+    wk, nk, sk, kk = ck.reverse_launch(fsel, ssel, rlist(cuda_device), cap, 1)
+    rows, masks = ck.reverse_list(active)
+    wp, np_, sp, kp = ck.reverse_plain_list(fsel, ssel, rows, masks, cap, 1)
+    assert torch.equal(nk, n_full) and torch.equal(nk, np_) and (nk > cap).all()
+    assert torch.equal(wk, wp) and torch.equal(sk, sp) and torch.equal(kk, kp)
 
 
 def test_planar_roundtrip_through_kernels(cuda_device):

@@ -21,6 +21,7 @@ from imgcomp_cvpr_tpu.utils import config as jconfig
 from imgcomp_cvpr_tpu_torch import weights as tweights
 from imgcomp_cvpr_tpu_torch.coding import codec as tcodec
 from imgcomp_cvpr_tpu_torch.coding import cuda_codec as tcc
+from imgcomp_cvpr_tpu_torch.coding import cuda_kernel as tck
 from imgcomp_cvpr_tpu_torch.coding import planar as tplanar
 from imgcomp_cvpr_tpu_torch.coding import planar_codec as tpcodec
 from imgcomp_cvpr_tpu_torch.coding import planar_kernel as tplk
@@ -176,6 +177,45 @@ def test_plain_reverse_byte_identical_to_jax(jax_k5, x0):
     np.testing.assert_array_equal(tk.numpy(), jk.reshape(B, R))
     if x0 == 1:
         assert tk.numpy().max() > 0
+
+
+@pytest.mark.parametrize('x0', [1, jrans.RANS_L])
+def test_plain_list_walker_byte_identical_to_jax(jax_k5, x0):
+    """The plain walker over the host-built list of non-empty (plane, step)
+    rows (what kernel 6 runs) writes JAX make_plane_reverse's words, word
+    counts, final states and warmups."""
+    d = jax_k5
+    jw, jn, jst, jk = d['rev'][x0]
+    sched = tplanar.build_planar_schedule(SHAPE, 5)
+    rows, masks = tck.reverse_list(tplk._full_active(sched))
+    tw, tn, tst, tk = tck.reverse_plain_list(torch.from_numpy(d['fsel']),
+                                             torch.from_numpy(d['ssel']), rows, masks,
+                                             sched.stream_cap, x0)
+    np.testing.assert_array_equal(tn.numpy(), jn.reshape(B))
+    for i in range(B):
+        np.testing.assert_array_equal(tw[i, :tn[i]].numpy().astype(np.uint32),
+                                      jw[i].reshape(-1)[:jn[i, 0, 0]])
+    np.testing.assert_array_equal(tst.numpy().view(np.uint32), jst.reshape(B, R))
+    np.testing.assert_array_equal(tk.numpy(), jk.reshape(B, R))
+
+
+# (4, 8, 8): every one of the 4 x 64 rows is non-empty; the Kodak latent
+# (32, 64, 96): 32 planes x T2 = 823 rows, of which 21,216 are non-empty (9.3
+# active lanes each on average).
+@pytest.mark.parametrize('shape,count', [((4, 8, 8), 256), ((32, 64, 96), 21216)])
+def test_plane_reverse_list_is_the_active_rows(shape, count):
+    """The list kernel 6 walks is {(plane, step): active row} in reverse
+    coding order (plane C-1 .. 0, step T2-1 .. 0), each with the exact lane
+    mask."""
+    sched = tplanar.build_planar_schedule(shape, 5)
+    step_act = sched.idx_cm < shape[1] * shape[2]                   # (T2, R)
+    rows, masks = tck.reverse_list(tplk._full_active(sched))
+    want = [(d, t) for d in range(shape[0] - 1, -1, -1) for t in range(sched.T2 - 1, -1, -1)
+            if step_act[t].any()]
+    assert len(rows) == len(want) == count
+    assert list(zip((rows // sched.T2).tolist(), (rows % sched.T2).tolist())) == want
+    bits = np.unpackbits(masks.view(np.uint8), bitorder='little').reshape(-1, R)
+    np.testing.assert_array_equal(bits.astype(bool), step_act[rows % sched.T2])
 
 
 def test_k5_roundtrip_and_theory(jax_k5):
