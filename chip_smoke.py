@@ -2,7 +2,11 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
 
 Usage: ``python3 chip_smoke.py`` from the repository root (needs one CUDA
-card and nvcc; exits non-zero without them).
+card and nvcc; exits non-zero without them). ``python3 chip_smoke.py
+--quantizer-only [--root DIR]`` runs only kernels 1 and 7 on seeded inputs of
+the main path's shapes, held to their plain versions and timed as in the
+kernels line, with the package of DIR (a checkout of another commit) when
+given: two such runs in one call compare two versions on one card.
 
 Phases, one line each:
   1. the device (torch name, nvidia-smi name and power limit);
@@ -35,6 +39,14 @@ Phases, one line each:
      seeded K=5 context model: AE encode -> per level bias rows + kernel 5
      encode (5 launches) -> kernel 6 -> container (impl id 6) -> parse -> per plane
      kernel 5 decode -> device CRC -> AE decode, bit-exact, with leg times;
+  4b. context models whose weights pass a block's shared memory (kf = 64,
+     seeded): the K=3 main path with `pc cvpr/res_shallow_64` and the
+     trained AE at B=16, kernel 2's tables there against its scan and its
+     plain version, the compile-time kf = 64 instance against the generic
+     one, and at kf = 24 the weights in device memory against shared
+     memory; the K=3 main path at `ae cvpr/hi` (C = 64) + res_shallow_64,
+     B=4; the K=5 main path with `pc base` at kf = 64, B=16, and kernel 5's
+     tables against its scan (placement, cluster size and times printed);
   6. the training path at full width (ae cvpr/low + pc cvpr/res_shallow,
      B=30 160x160 crops of synthetic:64, seeded weights): kernel 1 against
      its plain version on the z that the training forward hands it, one
@@ -44,7 +56,12 @@ Phases, one line each:
   7. the kernels line: each kernel's launches in its main-path phase (4, 5
      or 6), its error against the plain version, times and bound. Kernel 1
      has two rows: ``quantize`` (codec shape, phase 4's launches) and
-     ``quantize_train`` (training shape, phase 6b's launches).
+     ``quantize_train`` (training shape, phase 6b's launches). Kernels 1
+     and 7 are short beside the host work of a wrapper call, so their rows
+     also give the device time a call (``device_ms``, torch.profiler's
+     CUPTI kernel records; ``ms`` is this one), the time a call inside a
+     CUDA graph (``graph_ms``), the host us a wrapper call and the kernels
+     it launches (quantizer_times).
 The last line is {"ok": true, "device": {...}}. Any failed check raises,
 which exits non-zero before that line is printed.
 """
@@ -108,6 +125,122 @@ def cuda_ms(fn, reps=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def quantizer_times(fn, match, calls=50):
+    """What one wrapper call of kernel 1 or 7 costs, four ways: device ms a
+    call (torch.profiler's CUPTI kernel records whose name contains `match`
+    over `calls` calls: their mean duration times the kernels a call; None
+    if the profiler records no device kernel), kernels launched a call (the
+    records over the calls, rounded: CUPTI may drop a few records of
+    microsecond kernels), device ms a call from CUDA events around the
+    replay of a CUDA graph of `calls` calls (no host work between the
+    kernels; the launch gaps inside the graph included), and host us a call
+    (the wrapper's enqueue on the host clock: the median of 10 runs of 50
+    calls without a synchronise, the host being shared and noisy)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    recs = [e for e in prof.key_averages() if match in e.key]
+    dev_us = sum(getattr(e, 'device_time_total', None) or getattr(e, 'cuda_time_total', 0)
+                 for e in recs)
+    records = sum(e.count for e in recs)
+    per_call = round(records / calls)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm-up on the capture stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    graph_ms = start.elapsed_time(end) / (5 * calls)
+    del graph
+    runs = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(50):
+            fn()
+        runs.append((time.perf_counter() - t) / 50 * 1e6)
+    torch.cuda.synchronize()
+    return dict(device_ms=dev_us / records * per_call / 1e3 if records else None,
+                launches_per_call=per_call if records else None, records=records,
+                graph_ms=graph_ms, host_us_per_call=float(np.median(runs)))
+
+
+def quantizer_line(label, t, bound_ms):
+    dev = 'not recorded' if t['device_ms'] is None else f'{t["device_ms"] * 1e3:.2f} us'
+    return (f'{label}: device {dev} a call (torch.profiler, {t["launches_per_call"]} kernels '
+            f'a call, {t["records"]} records), {t["graph_ms"] * 1e3:.2f} us a call in a CUDA '
+            f'graph, host {t["host_us_per_call"]:.1f} us a wrapper call (median); bound '
+            f'{bound_ms * 1e3:.2f} us')
+
+
+def quantizer_only(root):
+    """`--quantizer-only [--root DIR]`: kernels 1 and 7 alone at the main
+    path's shapes (seeded inputs of the codec z and the training z), held to
+    their plain versions and timed by quantizer_times; DIR (a checkout of
+    another commit) supplies the package instead of this one. Prints one
+    JSON line."""
+    import torch
+    if root:
+        sys.path.insert(0, os.path.abspath(root))
+    from imgcomp_cvpr_tpu_torch.ops.kernels import build, quantize as qk
+    if root and not os.path.abspath(build.__file__).startswith(os.path.abspath(root)):
+        raise AssertionError(f'package not taken from {root}')
+    dev = torch.device('cuda')
+    logs = build.build_all()
+    for name in ('quantize', 'quantize_bwd'):
+        print(f'[q build] {name}: ' + ' | '.join(ptxas_summary(logs.get(name, ''))), flush=True)
+    rng = np.random.RandomState(0)
+    centers = torch.from_numpy(np.sort(rng.uniform(-2, 2, 6)).astype(np.float32)).to(dev)
+    out = {}
+    for name, shape in (('quantize', (BATCH, IMG_H // 8, IMG_W // 8, 32)),
+                        ('quantize_train', (TRAIN_BATCH, TRAIN_CROP // 8, TRAIN_CROP // 8, 32))):
+        z = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 1.5).to(dev)
+        k, p = qk.quantize_fwd(z, centers), qk.quantize_plain(z, centers)
+        if not (torch.equal(k[1], p[1]) and torch.equal(k[2], p[2])):
+            raise AssertionError(f'{name}: symbols or qhard differ from the plain version')
+        t = quantizer_times(lambda: qk.quantize_fwd(z, centers), 'quantize_fwd')
+        out[name] = dict(t, bound_ms=bound(16 * z.numel(), 0)[0],
+                         qsoft_err=(k[0] - p[0]).abs().max().item())
+        print(quantizer_line(f'[q {name}] z {shape}', t, out[name]['bound_ms']), flush=True)
+    x, g = (torch.from_numpy(rng.randn(*shape).astype(np.float32) * s).to(dev)
+            for s in (1.5, 1.0))
+    dx, dc = qk.quantize_bwd(x, centers, g, None)
+    px, pc_ = qk.quantize_bwd_plain(x, centers, g, None)
+    t = quantizer_times(lambda: qk.quantize_bwd(x, centers, g, None), 'quantize_bwd')
+    out['quantize_bwd'] = dict(t, bound_ms=bound(12 * x.numel(), 0)[0],
+                               dx_err=(dx - px).abs().max().item(),
+                               dc_err=(dc - pc_).abs().max().item())
+    print(quantizer_line(f'[q quantize_bwd] x {shape}', t, out['quantize_bwd']['bound_ms']),
+          flush=True)
+    print(json.dumps({'root': root or '.', 'device': torch.cuda.get_device_name(0),
+                      'quantizer': out}), flush=True)
+    return 0
+
+
+def ptxas_summary(log):
+    """ptxas -v's lines of one build that give, function by function, the
+    stack frame and spills, then (for a kernel) its registers."""
+    return [l.split(':', 1)[-1].strip() if 'registers' in l else l.strip()
+            for l in log.splitlines() if 'registers' in l or 'stack frame' in l]
 
 
 def host_ms(fn):
@@ -211,27 +344,13 @@ def library_logits_ms(pc, centers, syms):
     return cuda_ms(run, 2)
 
 
-def planar_kernels(dev, syms, centers, pc5, pc5_config, rows, sm_mhz):
-    """Phase 3 for kernels 5 and 6 at the main path's shapes (B=16, latent
-    (32, 64, 96), K=5). The layer-parallel encode is held against its plain
-    version and against the teacher-forced scan on every plane; the scan is
-    held against its own plain version on plane P = 2 in both modes. Adds
-    rows to ``rows``."""
+def planar_encode_launch_ms(coder, syms, fold):
+    """One PlanarCoder.encode_tables call after a warm-up, with CUDA events
+    around each of its kernel-5 launches (levels 1-4, tables): (their ms,
+    the host ms of the call, its tables, the kernel-5 launches it counted)."""
     import torch
-    from imgcomp_cvpr_tpu_torch.coding import planar, planar_codec
     from imgcomp_cvpr_tpu_torch.coding import planar_kernel as plk
     from imgcomp_cvpr_tpu_torch.ops.kernels import build
-    P = 2
-    B, C, H, W = syms.shape
-    shape = (C, H, W)
-    coder = planar_codec.PlanarCoder(pc5, pc5_config, device=dev)
-    sched, fold = coder._prepare(shape, centers)
-    K, kf, L = coder.K, fold.top.w1.shape[-1], coder.L
-    syms = syms.int().contiguous()
-    act = torch.from_numpy(sched.idx_cm < H * W).to(dev)
-    entries = int(act.sum().item()) * B
-
-    # The layer-parallel encode, with each of its kernel launches timed.
     spans = []
 
     def timed(fn):
@@ -250,11 +369,34 @@ def planar_kernels(dev, syms, centers, pc5, pc5_config, rows, sm_mhz):
         coder.encode_tables(syms, fold)                       # warm-up
         spans.clear()
         before = build.LAUNCHES['plane_forward_encode']
-        all_ms, (fsel_par, ssel_par) = host_ms(lambda: coder.encode_tables(syms, fold))
-        n_par = build.LAUNCHES['plane_forward_encode'] - before
+        all_ms, tables = host_ms(lambda: coder.encode_tables(syms, fold))
+        launches = build.LAUNCHES['plane_forward_encode'] - before
     finally:
         plk.level_forward, plk.plane_tables = kernel_calls
-    par_ms = [a.elapsed_time(b) for a, b in spans]
+    return [a.elapsed_time(b) for a, b in spans], all_ms, tables, launches
+
+
+def planar_kernels(dev, syms, centers, pc5, pc5_config, rows, sm_mhz):
+    """Phase 3 for kernels 5 and 6 at the main path's shapes (B=16, latent
+    (32, 64, 96), K=5). The layer-parallel encode is held against its plain
+    version and against the teacher-forced scan on every plane; the scan is
+    held against its own plain version on plane P = 2 in both modes. Adds
+    rows to ``rows``."""
+    import torch
+    from imgcomp_cvpr_tpu_torch.coding import planar, planar_codec
+    from imgcomp_cvpr_tpu_torch.coding import planar_kernel as plk
+    P = 2
+    B, C, H, W = syms.shape
+    shape = (C, H, W)
+    coder = planar_codec.PlanarCoder(pc5, pc5_config, device=dev)
+    sched, fold = coder._prepare(shape, centers)
+    K, kf, L = coder.K, fold.top.w1.shape[-1], coder.L
+    syms = syms.int().contiguous()
+    act = torch.from_numpy(sched.idx_cm < H * W).to(dev)
+    entries = int(act.sum().item()) * B
+
+    # The layer-parallel encode, with each of its kernel launches timed.
+    par_ms, all_ms, (fsel_par, ssel_par), n_par = planar_encode_launch_ms(coder, syms, fold)
     if n_par != 5 or len(par_ms) != 5:
         raise AssertionError(f'plane forward encode: {n_par} kernel-5 launches a batch')
     enc_plain_ms, (f_pl, s_pl) = host_ms(lambda: coder.encode_tables(syms, fold, plain=True))
@@ -432,12 +574,13 @@ def quantize_bwd_kernel(dev, trained_centers, rows):
     # The main path hands the kernel qsoft's cotangent only (nothing in the
     # loss reads qhard): 12 bytes move per element, 16 with gh.
     flops = 33 * 6 * n        # ~25 flops and one expf (counted as 8) per center
-    ms_main = cuda_ms(lambda: qk.quantize_bwd(x, trained_centers, g, None), 50)
-    ms_gh = cuda_ms(lambda: qk.quantize_bwd(x, trained_centers, g, gh), 50)
+    qt = quantizer_times(lambda: qk.quantize_bwd(x, trained_centers, g, None), 'quantize_bwd')
+    qt_gh = quantizer_times(lambda: qk.quantize_bwd(x, trained_centers, g, gh), 'quantize_bwd')
+    ms_main, ms_gh = (t['device_ms'] or t['graph_ms'] for t in (qt, qt_gh))
     rows['quantize_bwd'] = dict(
         route='cuda', source='imgcomp_cvpr_tpu_torch/csrc/quantize_bwd.cu',
         replaces='imgcomp_cvpr_tpu/ops/pallas/quantize.py:193',
-        max_abs_err=worst_dx, ms=ms_main,
+        max_abs_err=worst_dx, ms=ms_main, quantizer=qt,
         plain_ms=cuda_ms(lambda: qk.quantize_bwd_plain(x, trained_centers, g, None), 5),
         bound=bound(12 * n, flops), library_ms=None)
     print(f'[3 quantize_bwd] x {shape}, L=6, trained and init centers, gh present and '
@@ -445,9 +588,10 @@ def quantize_bwd_kernel(dev, trained_centers, rows):
           f'|dx| {worst_dx_rel:.3g}, tol {dx_tol}), dcenters max abs err {worst_dc:.3g} '
           f'(max rel {worst_dc_rel:.3g}; tol {dc_tol} * sqrt(n) abs on sums of n terms) '
           f'vs plain f32 and plain f64; two '
-          f'launches bit-equal; {ms_main * 1e3:.2f} us without gh (bound '
+          f'launches bit-equal; device {ms_main * 1e3:.2f} us without gh (bound '
           f'{bound(12 * n, flops)[0] * 1e3:.2f} us), {ms_gh * 1e3:.2f} us with gh '
-          f'(bound {bound(16 * n, flops)[0] * 1e3:.2f} us), L2-resident inputs', flush=True)
+          f'(bound {bound(16 * n, flops)[0] * 1e3:.2f} us), L2-resident inputs; '
+          + quantizer_line('without gh', qt, bound(12 * n, flops)[0]), flush=True)
 
 
 def training_path(dev, rows):
@@ -501,17 +645,19 @@ def training_path(dev, rows):
     if q_err > 1e-5:
         raise AssertionError(f'6a: quantize at the training shape: qsoft max abs err {q_err}')
     nz = z.numel()
+    qt = quantizer_times(lambda: qk.quantize_fwd(z, centers), 'quantize_fwd')
     rows['quantize_train'] = dict(
         route='cuda', source='imgcomp_cvpr_tpu_torch/csrc/quantize.cu',
         replaces='imgcomp_cvpr_tpu/ops/pallas/quantize.py:147',
-        max_abs_err=q_err, ms=cuda_ms(lambda: qk.quantize_fwd(z, centers), 20),
+        max_abs_err=q_err, ms=qt['device_ms'] or qt['graph_ms'], quantizer=qt,
         plain_ms=cuda_ms(lambda: qk.quantize_plain(z, centers), 5),
         bound=bound(16 * nz, 9 * 6 * nz), library_ms=None)
     print(f'[6a quantize at the training shape] z {tuple(z.shape)} from the train-mode '
           f'encoder at init (strides {tuple(z.stride())}, contiguous: {z.is_contiguous()}; '
           f'{len(torch.unique(sym_k))} of {centers.numel()} symbols occur): symbols and '
           f'qhard equal to the plain version and to the forward\'s own, qsoft max abs err '
-          f'{q_err:.3g} (tol 1e-5)', flush=True)
+          f'{q_err:.3g} (tol 1e-5); '
+          + quantizer_line('times', qt, bound(16 * nz, 9 * 6 * nz)[0]), flush=True)
 
     def grads():
         state.ae.load_state_dict(snapshot)      # the forward moves the BN statistics
@@ -696,17 +842,238 @@ def training_path(dev, rows):
     return launches
 
 
+def main_path(ae, codec, x, centers):
+    """One pass of a codec's main path through its entry points, with the
+    launch counts set to 0 just before it and read just after: AE encode ->
+    entropy encode -> container -> parse -> entropy decode (CRC verified) ->
+    AE decode. Raises unless the round trip is bit-exact and the
+    reconstruction finite. Returns (launches, facts for roundtrip_line)."""
+    import torch
+    from imgcomp_cvpr_tpu_torch.coding import codec as codec_lib
+    from imgcomp_cvpr_tpu_torch.ops.kernels import build
+    B, H, W, _ = x.shape
+    torch.cuda.synchronize()
+    build.reset_launches()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    wall = time.time()
+    ev[0].record()
+    with torch.no_grad():
+        enc = ae.encode(x)
+        syms = enc.symbols.permute(0, 3, 1, 2).contiguous()
+    ev[1].record()
+    results = codec.encode_batch(syms, centers)
+    ev[2].record()
+    decoded = codec.decode_batch([r.bitstream for r in results], centers, verify=True)
+    ev[3].record()
+    with torch.no_grad():
+        x_rec = ae.decode(centers[decoded.long()].permute(0, 2, 3, 1))
+    ev[4].record()
+    torch.cuda.synchronize()
+    wall = time.time() - wall
+    launches = dict(build.LAUNCHES)
+    if not torch.equal(decoded.long(), syms.long()):
+        raise AssertionError('main path: decoded symbols differ')
+    if tuple(x_rec.shape) != (B, H, W, 3) or not torch.isfinite(x_rec).all():
+        raise AssertionError(f'main path: bad reconstruction {tuple(x_rec.shape)}')
+    impl = {codec_lib.stream_impl_id(r.bitstream) for r in results}
+    if impl != {codec.impl_id}:
+        raise AssertionError(f'main path: impl ids {impl}')
+    mse = torch.mean((x_rec - x) ** 2).item()
+    bits = sum(r.num_bits for r in results)
+    theo = sum(r.theoretical_bits for r in results)
+    # Tail packing (x0 = 1): a lane's last k symbols in decode order cost
+    # no stream words; runs of symbol 0 (start 0) there are free, so a
+    # model that predicts them badly can code below its own theory.
+    ks = [codec_lib.deserialize_stream(r.bitstream)[4] for r in results]
+    return launches, dict(
+        syms=syms, bpp=bits / (B * H * W), overhead=100 * (bits / theo - 1),
+        warm=np.mean([0 if k is None else int(k.sum()) for k in ks]),
+        psnr=10 * np.log10(255.0 ** 2 / mse),
+        legs=[ev[i].elapsed_time(ev[i + 1]) for i in range(4)], wall=wall,
+        mp=B * H * W / 1e6)
+
+
+def roundtrip_line(rt):
+    legs = rt['legs']
+    return (f'CRC-verified bit-exact round-trip; bpp {rt["bpp"]:.5f}, real/theory overhead '
+            f'{rt["overhead"]:.4f}% (tail-packed warmup {rt["warm"]:.1f} symbols/image), PSNR '
+            f'{rt["psnr"]:.3f} dB; ms: ae_encode {legs[0]:.3f}, entropy_encode {legs[1]:.3f}, '
+            f'entropy_decode {legs[2]:.3f}, ae_decode {legs[3]:.3f}; wall '
+            f'{rt["wall"] * 1e3:.1f} ms = {rt["mp"] / rt["wall"]:.4f} MP/s enc+dec')
+
+
+def k3_kernel_times(fw, shape, syms_flat, force=0):
+    """Kernel 2 at these weights and symbols: (encode tables, scan tables,
+    layer-parallel encode ms (5 launches), scan decode ms (on the cluster
+    the wrapper picks), decoded symbols). The decode reads streams that
+    kernel 3 wrote from the encode tables."""
+    import torch
+    from imgcomp_cvpr_tpu_torch.coding import cuda_kernel as ck
+    dev = syms_flat.device
+    B = syms_flat.shape[0]
+    sched = ck.build_schedule(shape)
+    f_k, s_k = ck.wavefront_forward(ck.MODE_ENCODE, fw, shape, true_syms=syms_flat, force=force)
+    f_s, s_s = ck.wavefront_forward(ck.MODE_ENCODE, fw, shape, true_syms=syms_flat, scan=True,
+                                    force=force)
+    enc_ms = cuda_ms(lambda: ck.wavefront_forward(ck.MODE_ENCODE, fw, shape,
+                                                  true_syms=syms_flat, force=force), 2)
+    w, n_w, st, k = ck.rans_reverse(f_k, s_k, shape, 1)
+    streams = torch.zeros(B, sched.stream_cap, dtype=torch.int32, device=dev)
+    for i in range(B):
+        streams[i, :n_w[i]] = w[i, :n_w[i]].flip(0)
+    thresh = (torch.from_numpy(ck.lane_totals(sched)).to(dev)[None] - k).int().contiguous()
+    args = dict(streams=streams, init_states=st, thresh=thresh, force=force)
+    dec = ck.wavefront_forward(ck.MODE_DECODE, fw, shape, **args)
+    dec_ms = cuda_ms(lambda: ck.wavefront_forward(ck.MODE_DECODE, fw, shape, **args))
+    return (f_k, s_k), (f_s, s_s), enc_ms, dec_ms, dec
+
+
+def wide_context_models(dev, ae, ae_config, x, centers, fw24):
+    """Phase 4b: context models whose weights pass a block's shared memory,
+    so that kernels 2 and 5 read them from device memory (seeded weights:
+    no trained kf = 64 model exists in the repository).
+      - K=3, `pc cvpr/res_shallow_64` (kf = 64) with the trained `cvpr/low`
+        AE, B=16 512x768: the main path through the entry points (launch
+        counts from 0), then kernel 2's tables at kf = 64 against its scan
+        (every entry) and its plain version, the compile-time kf = 64
+        instance against the generic one (tables equal, times), and at kf =
+        24 the scan with its weights in device memory against shared memory;
+      - K=3 at `ae cvpr/hi` (C = 64, seeded) + `pc cvpr/res_shallow_64`,
+        B=4 (the depth of the batch cut for time only): the main path, and
+        the tables against the scan;
+      - K=5 at kf = 64 (`pc base` with arch_param__k = 64, seeded) with the
+        trained AE, B=16: the main path, kernel 5's layer-parallel tables
+        against its plane-by-plane scan on every plane, its times.
+    Returns the launch counts of the first main path."""
+    import torch
+    from imgcomp_cvpr_tpu_torch.coding import codec as codec_lib, cuda_codec
+    from imgcomp_cvpr_tpu_torch.coding import cuda_kernel as ck, planar_codec
+    from imgcomp_cvpr_tpu_torch.coding import planar_kernel as plk
+    from imgcomp_cvpr_tpu_torch.models import autoencoder as ae_lib
+    from imgcomp_cvpr_tpu_torch.models import probclass as pc_lib
+    from imgcomp_cvpr_tpu_torch.ops.kernels import build
+    from imgcomp_cvpr_tpu_torch.utils import config as config_lib
+    pc64_config, _ = config_lib.parse_spec('cvpr/res_shallow_64', 'pc')
+    kf = pc64_config.arch_param__k
+    pc64 = pc_lib.init_params(pc_lib.ProbClassifier(pc64_config, ae_config.num_centers,
+                                                    device=dev), seed=0)
+    lc64 = codec_lib.LatentCodec(pc64, pc64_config, device=dev)
+    launches, rt = main_path(ae, lc64, x, centers)
+    if not rt['psnr'] > 15.0:
+        raise AssertionError(f'4b: reconstruction PSNR {rt["psnr"]:.2f} dB')
+    for name in ('quantize', 'wavefront_forward_encode', 'wavefront_forward_decode',
+                 'rans_reverse'):
+        if launches[name] < 1:
+            raise AssertionError(f'4b: kernel {name} was not launched on the kf = 64 path')
+    syms = rt['syms']
+    B, C, H, W = syms.shape
+    shape, n = (C, H, W), C * H * W
+    sched = ck.build_schedule(shape)
+    L = ae_config.num_centers
+    place = {e: 'device memory' if ck.weights_in_device(kf, L, sched.CQ, sched.T, encode=e)
+             else 'shared memory' for e in (False, True)}
+    cluster = ck.scan_cluster(kf, L, sched.CQ, sched.T, B)
+    fw = cuda_codec.fold_weights(pc64, centers)
+    syms_flat = syms.reshape(B, n).int().contiguous()
+    (f_k, s_k), (f_s, s_s), enc_ms, dec_ms, dec = k3_kernel_times(fw, shape, syms_flat)
+    if not (torch.equal(f_k, f_s) and torch.equal(s_k, s_s)):
+        raise AssertionError('4b: kf = 64 encode tables differ from the scan\'s')
+    if not torch.equal(dec, syms_flat):
+        raise AssertionError('4b: kf = 64 decode did not recover the symbols')
+    plain_ms, (f_p, s_p) = host_ms(lambda: ck.wavefront_encode_plain(fw, shape, syms_flat))
+    act = torch.from_numpy(sched.idx_cm < n).to(dev)
+    entries = int(act.sum().item()) * B
+    flips = int((((f_k != f_p) | (s_k != s_p)) & act).sum().item())
+    if flips > 1e-3 * entries:
+        raise AssertionError(f'4b: kf = 64 encode: {flips} flips vs plain of {entries}')
+    (f_g, s_g), _, enc_g_ms, dec_g_ms, dec_g = k3_kernel_times(fw, shape, syms_flat,
+                                                                ck.FORCE_GENERIC)
+    if not (torch.equal(f_g, f_k) and torch.equal(s_g, s_k) and torch.equal(dec_g, dec)):
+        raise AssertionError('4b: the generic instance differs from the kf = 64 one')
+    t24 = {force: k3_kernel_times(fw24, shape, syms_flat, force)
+           for force in (0, ck.FORCE_WDEV)}
+    if not all(torch.equal(a, b) for a, b in zip(t24[0][0] + (t24[0][4],),
+                                                 t24[ck.FORCE_WDEV][0] + (t24[ck.FORCE_WDEV][4],))):
+        raise AssertionError('4b: kf = 24 with the weights in device memory differs')
+    print(f'[4b wide context model] K=3 trained AE + seeded pc cvpr/res_shallow_64 (kf={kf}, '
+          f'L={L}), B={B} {IMG_H}x{IMG_W} latent {shape}: ' + roundtrip_line(rt) + '; '
+          f'launches {launches}; kernel 2 weights in {place[False]} (scan) and '
+          f'{place[True]} (encode), scan on clusters of {cluster}; layer-parallel encode '
+          f'{enc_ms:.3f} ms, tables equal to the scan\'s on all {f_k.numel()} entries and to '
+          f'the plain version\'s but {flips} of {entries} ({plain_ms:.0f} ms); scan decode '
+          f'{dec_ms:.3f} ms; the generic instance: encode {enc_g_ms:.3f} ms, decode '
+          f'{dec_g_ms:.3f} ms (same tables and symbols); kf=24 trained model, weights in '
+          f'shared vs device memory: encode {t24[0][2]:.3f} vs '
+          f'{t24[ck.FORCE_WDEV][2]:.3f} ms, decode {t24[0][3]:.3f} vs '
+          f'{t24[ck.FORCE_WDEV][3]:.3f} ms (same tables and symbols)', flush=True)
+
+    # ae cvpr/hi: C = 64, a latent depth the other phases do not run.
+    hi_config, _ = config_lib.parse_spec('cvpr/hi', 'ae')
+    ae_hi = ae_lib.init_params(ae_lib.CVPRAutoencoder(hi_config, device=dev), seed=0)
+    c_hi = ae_hi.encoder.centers.detach()
+    b_hi = 4
+    _, cold = main_path(ae_hi, lc64, x[:b_hi], c_hi)      # the first call at this shape
+    launches_hi, rt_hi = main_path(ae_hi, lc64, x[:b_hi], c_hi)
+    syms_hi = rt_hi['syms']
+    shape_hi = tuple(syms_hi.shape[1:])
+    fw_hi = cuda_codec.fold_weights(pc64, c_hi)
+    flat_hi = syms_hi.reshape(b_hi, -1).int().contiguous()
+    (f_k, s_k), (f_s, s_s), enc_hi_ms, dec_hi_ms, dec_hi = k3_kernel_times(fw_hi, shape_hi,
+                                                                            flat_hi)
+    if not (torch.equal(f_k, f_s) and torch.equal(s_k, s_s) and torch.equal(dec_hi, flat_hi)):
+        raise AssertionError('4b: ae cvpr/hi: tables differ from the scan\'s or decode fails')
+    print(f'[4b wide latent] seeded ae cvpr/hi (C={hi_config.num_chan_bn}) + seeded pc '
+          f'cvpr/res_shallow_64, B={b_hi} {IMG_H}x{IMG_W} latent {shape_hi}: '
+          + roundtrip_line(rt_hi) + f' (the first call at this shape, building its '
+          f'schedule: legs {[round(t, 3) for t in cold["legs"]]} ms); launches {launches_hi}; '
+          f'kernel 2 encode {enc_hi_ms:.3f} ms (tables equal to the scan\'s on all '
+          f'{f_k.numel()} entries), scan decode {dec_hi_ms:.3f} ms', flush=True)
+
+    # K = 5 at kf = 64.
+    pc5_config, _ = config_lib.parse_spec('base', 'pc')
+    pc5_config = pc5_config.replace(arch_param__k=kf)
+    pc5 = pc_lib.init_params(pc_lib.ProbClassifier(pc5_config, L, device=dev), seed=0)
+    lc5 = codec_lib.LatentCodec(pc5, pc5_config, device=dev)
+    launches5, rt5 = main_path(ae, lc5, x, centers)
+    for name in ('plane_forward_encode', 'plane_forward_decode', 'plane_reverse'):
+        if launches5[name] < 1:
+            raise AssertionError(f'4b: kernel {name} was not launched on the K=5 kf = 64 path')
+    coder = planar_codec.PlanarCoder(pc5, pc5_config, device=dev)
+    psched, fold = coder._prepare(shape, centers)
+    place5 = {s_: 'device memory' if plk.weights_in_device(fold.top, shape, coder.K, scan=s_)
+              else 'shared memory' for s_ in (True, False)}
+    syms5 = rt5['syms'].int().contiguous()
+    par5_ms, enc5_ms, (fk5, sk5), _ = planar_encode_launch_ms(coder, syms5, fold)
+    scan_ms, (fs5, ss5) = host_ms(lambda: coder.encode_tables_scan(syms5, fold))
+    bias = coder.bias_rows(fold, coder._history(fold, psched, B))
+    plane_ms = cuda_ms(lambda: plk.plane_forward(plk.MODE_ENCODE, fold.top, shape, coder.K,
+                                                 bias, true_plane=syms5[:, 0].contiguous()), 2)
+    if not (torch.equal(fk5, fs5) and torch.equal(sk5, ss5)):
+        raise AssertionError('4b: K=5 kf = 64 tables differ from the scan\'s')
+    print(f'[4b wide K=5] trained AE + seeded pc base with arch_param__k={kf}, B={B} latent '
+          f'{shape}: ' + roundtrip_line(rt5) + f'; launches {launches5}; kernel 5 weights in '
+          f'{place5[True]} (scan) and {place5[False]} (level passes); encode_tables '
+          f'{enc5_ms:.3f} ms, of which kernel 5\'s 5 launches (levels 1-4, tables) '
+          f'{[round(t, 3) for t in par5_ms]} = {sum(par5_ms):.3f} ms; tables equal to the '
+          f'plane-by-plane scan\'s on all {fk5.numel()} entries; kernel 5\'s scan '
+          f'{plane_ms:.3f} ms a plane ({scan_ms:.1f} ms over {C} planes in mode 1 with the '
+          f'bias-row convolutions)', flush=True)
+    return launches
+
+
 def bound(nbytes, flops):
     t_b, t_f = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_F32_FLOPS * 1e3
     return (t_b, 'bytes') if t_b >= t_f else (t_f, 'operations')
 
 
-def main():
+def main(argv):
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA card (torch.cuda.is_available() is False)',
               file=sys.stderr)
         return 2
+    if '--quantizer-only' in argv:
+        return quantizer_only(argv[argv.index('--root') + 1] if '--root' in argv else None)
     from imgcomp_cvpr_tpu_torch import weights as weights_lib
     from imgcomp_cvpr_tpu_torch.coding import codec as codec_lib
     from imgcomp_cvpr_tpu_torch.coding import cuda_codec, cuda_kernel as ck
@@ -730,9 +1097,7 @@ def main():
 
     t0 = time.time()
     logs = build.build_all()
-    regs = '; '.join(f'{k}: ' + ' | '.join(l.strip() for l in v.splitlines()
-                                           if 'registers' in l)
-                     for k, v in logs.items())
+    regs = '; '.join(f'{k}: ' + ' | '.join(ptxas_summary(v)) for k, v in logs.items())
     print(f'[2 build] {len(build.SOURCES)} kernels for sm_90a in '
           f'{time.time() - t0:.1f} s ({regs})', flush=True)
 
@@ -766,14 +1131,16 @@ def main():
     if q_err > 1e-5:
         raise AssertionError(f'quantize: qsoft max abs err {q_err}')
     nz = z.numel()
+    qt = quantizer_times(lambda: qk.quantize_fwd(z, centers), 'quantize_fwd')
     rows['quantize'] = dict(
         route='cuda', source='imgcomp_cvpr_tpu_torch/csrc/quantize.cu',
         replaces='imgcomp_cvpr_tpu/ops/pallas/quantize.py:147',
-        max_abs_err=q_err, ms=cuda_ms(lambda: qk.quantize_fwd(z, centers), 20),
+        max_abs_err=q_err, ms=qt['device_ms'] or qt['graph_ms'], quantizer=qt,
         plain_ms=cuda_ms(lambda: qk.quantize_plain(z, centers), 5),
         bound=bound(16 * nz, 9 * 6 * nz), library_ms=None)
     print(f'[3 quantize] z {tuple(z.shape)}: symbols equal, qsoft max abs err '
-          f'{q_err:.3g} (tol 1e-5)', flush=True)
+          f'{q_err:.3g} (tol 1e-5); '
+          + quantizer_line('times', qt, bound(16 * nz, 9 * 6 * nz)[0]), flush=True)
     quantize_bwd_kernel(dev, centers, rows)
 
     macs = 0
@@ -912,54 +1279,16 @@ def main():
     # ---- phases 4 and 5: the main paths through the entry points ---------
     launches = {}
     for phase, codec in ((4, lc), (5, lc5)):
-        torch.cuda.synchronize()
-        build.reset_launches()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        wall = time.time()
-        ev[0].record()
-        with torch.no_grad():
-            enc = ae.encode(x)
-            syms = enc.symbols.permute(0, 3, 1, 2).contiguous()
-        ev[1].record()
-        results = codec.encode_batch(syms, centers)
-        ev[2].record()
-        decoded = codec.decode_batch([r.bitstream for r in results], centers, verify=True)
-        ev[3].record()
-        with torch.no_grad():
-            x_rec = ae.decode(centers[decoded.long()].permute(0, 2, 3, 1))
-        ev[4].record()
-        torch.cuda.synchronize()
-        wall = time.time() - wall
-        launches[phase] = dict(build.LAUNCHES)
-        if not torch.equal(decoded.long(), syms.long()):
-            raise AssertionError(f'main path {phase}: decoded symbols differ')
-        if tuple(x_rec.shape) != (BATCH, IMG_H, IMG_W, 3) or not torch.isfinite(x_rec).all():
-            raise AssertionError(f'main path {phase}: bad reconstruction {tuple(x_rec.shape)}')
-        impl = {codec_lib.stream_impl_id(r.bitstream) for r in results}
-        if impl != {codec.impl_id}:
-            raise AssertionError(f'main path {phase}: impl ids {impl}')
-        mse = torch.mean((x_rec - x) ** 2).item()
-        psnr = 10 * np.log10(255.0 ** 2 / mse)
-        if not psnr > 15.0:
-            raise AssertionError(f'main path {phase}: reconstruction PSNR {psnr:.2f} dB')
-        bits = sum(r.num_bits for r in results)
-        theo = sum(r.theoretical_bits for r in results)
-        legs = [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
-        # Tail packing (x0 = 1): a lane's last k symbols in decode order cost
-        # no stream words; runs of symbol 0 (start 0) there are free, so a
-        # model that predicts them badly can code below its own theory.
-        ks = [codec_lib.deserialize_stream(r.bitstream)[4] for r in results]
-        warm = np.mean([0 if k is None else int(k.sum()) for k in ks])
-        mp = BATCH * IMG_H * IMG_W / 1e6
+        launches[phase], rt = main_path(ae, codec, x, centers)
+        if not rt['psnr'] > 15.0:
+            raise AssertionError(f'main path {phase}: reconstruction PSNR {rt["psnr"]:.2f} dB')
         model = ('K=3 trained pc cvpr/res_shallow' if phase == 4
                  else 'K=5 seeded pc base, impl id 6')
         print(f'[{phase} main path] {model}, B={BATCH} {IMG_H}x{IMG_W} latent {shape}: '
-              f'CRC-verified bit-exact round-trip; bpp {bits / (BATCH * IMG_H * IMG_W):.5f}, '
-              f'real/theory overhead {100 * (bits / theo - 1):.4f}% (tail-packed warmup '
-              f'{warm:.1f} symbols/image), PSNR {psnr:.3f} dB; '
-              f'ms: ae_encode {legs[0]:.3f}, entropy_encode {legs[1]:.3f}, '
-              f'entropy_decode {legs[2]:.3f}, ae_decode {legs[3]:.3f}; '
-              f'wall {wall * 1e3:.1f} ms = {mp / wall:.4f} MP/s enc+dec', flush=True)
+              + roundtrip_line(rt), flush=True)
+
+    # ---- phase 4b: context models past shared memory (kf = 64) -----------
+    launches['4b'] = wide_context_models(dev, ae, ae_config, x, centers, fw)
 
     launches[6] = training_path(dev, rows)
 
@@ -983,6 +1312,11 @@ def main():
                             max_abs_err=r['max_abs_err'], ms=r['ms'],
                             plain_ms=r['plain_ms'], bound_ms=b_ms, bound_by=b_by,
                             library_ms=r['library_ms']))
+        if 'quantizer' in r:    # kernels 1 and 7: device time beside the host's
+            q = r['quantizer']
+            kernels[-1].update(device_ms=q['device_ms'], graph_ms=q['graph_ms'],
+                               host_us_per_call=q['host_us_per_call'],
+                               launches_per_call=q['launches_per_call'])
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                             'count': torch.cuda.device_count()}}),
@@ -991,4 +1325,4 @@ def main():
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

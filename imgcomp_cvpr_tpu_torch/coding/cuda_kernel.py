@@ -505,7 +505,7 @@ class _FwdArgs(ctypes.Structure):
                  ('CQ', ctypes.c_int), ('cap', ctypes.c_int),
                  ('G1', ctypes.c_int), ('G2', ctypes.c_int), ('G3', ctypes.c_int),
                  ('cluster', ctypes.c_int), ('N1', ctypes.c_int), ('N2', ctypes.c_int),
-                 ('N3', ctypes.c_int), ('N4', ctypes.c_int),
+                 ('N3', ctypes.c_int), ('N4', ctypes.c_int), ('force', ctypes.c_int),
                  ('params', ctypes.c_void_p)]
                 + [(f'{k}{l}', ctypes.c_void_p) for l in range(1, 5)
                    for k in ('ptr', 'cells', 'taps')]
@@ -524,20 +524,27 @@ def _check_cuda(name, t, dtype, shape, device):
 
 
 MAX_CLUSTER = 8  # blocks an image in the scan: the portable cluster limit
+# FwdArgs::force / PlaneArgs::force bits (csrc/wavefront_forward.cu,
+# csrc/plane_forward.cu): the weights in device memory even where they fit in
+# shared memory; the generic instance even where a compile-time one exists.
+FORCE_WDEV, FORCE_GENERIC = 1, 2
 
 
 def wavefront_forward(mode: int, weights: FoldedWeights,
                       latent_shape: Tuple[int, int, int], *, true_syms=None,
                       streams=None, init_states=None, thresh=None,
-                      scan: bool = False, cluster: Optional[int] = None, prof=None):
+                      scan: bool = False, cluster: Optional[int] = None, prof=None,
+                      force: int = 0):
     """Kernel 2 wrapper. Same contract as wavefront_forward_plain (without
     return_logits). Encode (mode 1) takes the layer-parallel entry, or with
     ``scan`` the step-ordered scan (its consistency oracle: the tables are
     equal); decode (mode 0) is the scan, one image over ``cluster`` blocks
     (default: the largest cluster at which the whole batch runs at once).
     ``prof`` (B, 10) int64 on the device receives the scan's clocks per phase
-    and barrier. A CPU tensor runs the plain versions, a CUDA tensor launches
-    csrc/wavefront_forward.cu."""
+    and barrier. ``force`` (FORCE_WDEV | FORCE_GENERIC) takes a placement or
+    instance the kernel would not choose itself, for comparisons; the tables
+    and symbols are the same bits. A CPU tensor runs the plain versions, a
+    CUDA tensor launches csrc/wavefront_forward.cu."""
     if mode not in (MODE_DECODE, MODE_ENCODE):
         raise ValueError(f'mode must be 0 (decode) or 1 (encode), got {mode}')
     parallel = mode == MODE_ENCODE and not scan
@@ -596,7 +603,7 @@ def wavefront_forward(mode: int, weights: FoldedWeights,
                  cap=cap, G1=G[0], G2=G[1], G3=G[2], cluster=cluster,
                  N1=len(sched.layers[0].cells), N2=len(sched.layers[1].cells),
                  N3=len(sched.layers[2].cells), N4=len(sched.layers[3].cells),
-                 params=p(params), skip3=p(tabs.skip), slot4=p(tabs.slot4),
+                 force=force, params=p(params), skip3=p(tabs.skip), slot4=p(tabs.slot4),
                  idx_cm=p(tabs.idx_cm), act1=p(acts[0]),
                  act2=p(acts[1]), act3=p(acts[2]), logits=p(logits), qbuf=p(qbuf),
                  true_syms=p(true_syms), fsel=p(fsel), ssel=p(ssel),
@@ -631,6 +638,21 @@ def max_active_clusters(kf: int, L: int, CQ: int, T: int, cluster: int) -> int:
     if out < 0:
         raise RuntimeError(f'cudaOccupancyMaxActiveClusters: cudaError {-out}')
     return out
+
+
+def weights_in_device(kf: int, L: int, CQ: int, T: int, encode: bool = False,
+                      force: int = 0) -> bool:
+    """Whether kernel 2's scan (or, with ``encode``, its layer-parallel
+    encode) reads the weights from device memory at these widths: they do not
+    fit in a block's shared memory beside the rest (kf >= ~39 at L = 6 and
+    the Kodak latent), or ``force`` asks for it."""
+    fn = build.load('wavefront_forward').wavefront_weights_in_device
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    out = fn(kf, L, CQ, T, force, int(encode))
+    if out < 0:
+        raise RuntimeError(f'wavefront_weights_in_device: cudaError {-out}')
+    return bool(out)
 
 
 def scan_cluster(kf: int, L: int, CQ: int, T: int, B: int) -> int:

@@ -210,7 +210,7 @@ def plane_forward_plain(mode: int, weights: PlaneWeights,
 class _PlaneArgs(ctypes.Structure):
     _fields_ = ([(k, ctypes.c_int) for k in (
         'mode', 'B', 'H', 'W', 'K', 'BH', 'CTR', 'T2', 'kf', 'L', 'cap', 'threads',
-        'level')]
+        'level', 'force')]
                 + [('nt', ctypes.c_int * 4),
                    ('tdy', (ctypes.c_int * MAX_TAPS) * 4),
                    ('tdx', (ctypes.c_int * MAX_TAPS) * 4)]
@@ -262,13 +262,14 @@ def _launch(entry: str, a: '_PlaneArgs', dev) -> None:
 def plane_forward(mode: int, weights: PlaneWeights,
                   latent_shape: Tuple[int, int, int], K: int, bias, *,
                   true_plane=None, streams=None, states=None, gptr=None,
-                  thresh=None, prof=None) -> PlaneOut:
+                  thresh=None, prof=None, force: int = 0) -> PlaneOut:
     """Kernel 5's scan over one plane. Same contract as plane_forward_plain
     (without return_logits); a CPU tensor runs the plain version, a CUDA
     tensor launches csrc/plane_forward.cu. Mode 1 is the consistency oracle
     of the layer-parallel encode (level_forward + plane_tables). ``prof``
     (B, 5) int64 on the device receives thread 0's clocks in levels 1-4 and
-    in the CDF + rANS part, summed over the steps."""
+    in the CDF + rANS part, summed over the steps. ``force`` as in
+    cuda_kernel.wavefront_forward (the same bits)."""
     if mode not in (MODE_DECODE, MODE_ENCODE):
         raise ValueError(f'mode must be 0 (decode) or 1 (encode), got {mode}')
     dev = weights.w1.device
@@ -309,7 +310,7 @@ def plane_forward(mode: int, weights: PlaneWeights,
     # One thread per (cell, channel) of the widest band a step has.
     band = max(-(-g[1] // sched.BH) for g in sched.grids[1:])
     threads = min(512, max(64, ck._round_up(min(band, R) * kf, 32)))
-    a = _plane_args(weights, sched, B, mode=mode, cap=cap, threads=threads,
+    a = _plane_args(weights, sched, B, mode=mode, cap=cap, threads=threads, force=force,
                     bias1=bias[0], bias2=bias[1], bias3=bias[2], bias4=bias[3],
                     act1=acts[0], act2=acts[1], act3=acts[2], qplane=qp,
                     true_plane=true_plane, fsel=fsel, ssel=ssel, streams=streams,
@@ -355,13 +356,15 @@ def level_forward_plain(level: int, weights: PlaneWeights,
 
 def level_forward(level: int, weights: PlaneWeights,
                   latent_shape: Tuple[int, int, int], K: int, src: torch.Tensor,
-                  bias: torch.Tensor, skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  bias: torch.Tensor, skip: Optional[torch.Tensor] = None,
+                  force: int = 0) -> torch.Tensor:
     """Kernel 5's layer-parallel encode pass: level ``level`` (1..4) of P
     (image, plane) pairs in one launch. src (P, H_{l-1}, W_{l-1}[, kf]) is
     the level below (level 0: the padded q planes), bias (P, H_l, W_l, cout)
     the level's bias rows, skip (level 3 only) the level-1 activations ->
     (P, H_l, W_l, cout) f32 (level 4: the ReLU'd logits). A CPU tensor runs
-    the plain version, a CUDA tensor launches csrc/plane_forward.cu."""
+    the plain version, a CUDA tensor launches csrc/plane_forward.cu (``force``
+    as in plane_forward)."""
     if level not in (1, 2, 3, 4) or (level == 3) != (skip is not None):
         raise ValueError(f'level {level} with skip {"given" if skip is not None else "absent"}')
     dev = weights.w1.device
@@ -383,9 +386,26 @@ def level_forward(level: int, weights: PlaneWeights,
     fields = {names[level - 1]: src, names[level]: out, f'bias{level}': bias}
     if skip is not None:
         fields['act1'] = skip
-    _launch('plane_level', _plane_args(weights, sched, P, level=level, **fields), dev)
+    _launch('plane_level', _plane_args(weights, sched, P, level=level, force=force, **fields),
+            dev)
     build.LAUNCHES['plane_forward_encode'] += 1
     return out
+
+
+def weights_in_device(weights: PlaneWeights, latent_shape: Tuple[int, int, int], K: int,
+                      scan: bool = True, force: int = 0) -> bool:
+    """Whether kernel 5's scan (or, without ``scan``, its level passes)
+    reads the weights from device memory at these widths: they do not fit in
+    a block's shared memory (kf >= ~46 at K = 5, L = 6), or ``force`` asks
+    for it."""
+    sched = planar.build_planar_schedule(latent_shape, K)
+    fn = build.load('plane_forward').plane_weights_in_device
+    fn.argtypes = [_PlaneArgs, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    out = fn(_plane_args(weights, sched, 1, force=force), int(scan))
+    if out < 0:
+        raise RuntimeError(f'plane_weights_in_device: cudaError {-out}')
+    return bool(out)
 
 
 def plane_tables_plain(logits: torch.Tensor, true_planes: torch.Tensor,

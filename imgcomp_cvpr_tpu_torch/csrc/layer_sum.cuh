@@ -55,7 +55,8 @@ __device__ __forceinline__ void load_row(const float* p, float (&x)[CIN]) {
   }
 }
 
-// CO contiguous weights (shared memory; p is aligned to CO's vector width).
+// CO contiguous weights (shared or device memory; p is aligned to CO's vector
+// width).
 template <int CO>
 __device__ __forceinline__ void load_w(const float* p, float (&w)[CO]) {
   if constexpr (CO % 4 == 0) {
@@ -78,7 +79,8 @@ __device__ __forceinline__ void load_w(const float* p, float (&w)[CO]) {
 
 // acc[m][j] = sum over (tap k, channel ci) of x_{m,k}[ci] * w[k][ci][c0 + j]
 // for M cells m and CO channels j. row(m, k) is the address of tap k's CIN
-// input floats of cell m; w is [NT][CIN][COUT] in shared memory. A thread
+// input floats of cell m; w is [NT][CIN][COUT] in shared memory (or, past
+// the shared-memory limit, in device memory: the same order). A thread
 // that owns M cells uses every weight it loads M times: the kernels are
 // bound by the shared-memory reads of the weights (measured on an H100: a
 // 128-bit load by a warp costs the SM ~8 clocks whatever the lanes share),

@@ -52,8 +52,16 @@
 // Template instances: <KF = 24, NL = 6, N1 = 12, NO = 13> (K = 5 with the
 // shipped widths: the `pc base` context model) and <0, 0, 0, 0>, the generic
 // instance for any other K or width (one (cell, channel) a thread, run-time
-// loops, one global and one shared load per multiply: the first version's
-// inner loop, several times slower).
+// loops, two loads per multiply: the first version's inner loop, several
+// times slower).
+//
+// Where the weights live (WG), as in kernel 2: in a block's dynamic shared
+// memory while they (and the scan's staged tap rows) fit within the card's
+// opt-in limit (cudaDevAttrMaxSharedMemoryPerBlockOptin; up to kf ~45 at K =
+// 5, L = 6), else all of them in device memory, read through L1 / L2 (kf =
+// 64: 439 KB). Only where an operand comes from changes, not the order of any
+// sum. PlaneArgs::force asks for the device-memory placement or the generic
+// instance where they are not needed (tests and chip_smoke.py).
 //
 // Bound on the H100: operations; the top-slice taps of one Kodak-size plane
 // (64 x 96, K=5, kf=24) are ~0.45 GFLOP per image in f32 (chip_smoke.py
@@ -70,6 +78,8 @@
 #define RANS_L 65536u
 #define ENC_THREADS 256
 #define SCAN_MAX_THREADS 512
+#define FORCE_WDEV 1      // weights in device memory even where they fit
+#define FORCE_GENERIC 2   // the generic instance even where a fixed one exists
 
 #include "cdf.cuh"
 #include "layer_sum.cuh"
@@ -77,6 +87,7 @@
 
 struct PlaneArgs {
   int mode, B, H, W, K, BH, CTR, T2, kf, L, cap, threads, level;
+  int force;         // FORCE_WDEV | FORCE_GENERIC, or 0: the host's own choice
   int nt[4];
   int tdy[4][MAX_TAPS];
   int tdx[4][MAX_TAPS];
@@ -160,11 +171,18 @@ struct Weights {
   const float *w1, *w2, *w3, *w4, *pad, *centers;
 };
 
+// Slice the packed weights: copied into shared memory, or (WG) read where
+// they are, in device memory.
+template <bool WG>
 __device__ __forceinline__ Weights load_weights(float* sm, const PlaneArgs& a) {
-  const int np = params_size(a.nt, a.kf, a.L);
-  for (int i = threadIdx.x; i < np; i += blockDim.x) sm[i] = a.params[i];
+  const float* base = a.params;
+  if constexpr (!WG) {
+    const int np = params_size(a.nt, a.kf, a.L);
+    for (int i = threadIdx.x; i < np; i += blockDim.x) sm[i] = a.params[i];
+    base = sm;
+  }
   Weights p;
-  p.w1 = sm;
+  p.w1 = base;
   p.w2 = p.w1 + a.nt[0] * a.kf;
   p.w3 = p.w2 + a.nt[1] * a.kf * a.kf;
   p.w4 = p.w3 + a.nt[2] * a.kf * a.kf;
@@ -246,10 +264,10 @@ __device__ __forceinline__ void level_all_cells(const Level& lv) {
   }
 }
 
-template <int KF, int NL, int N1, int NO>
+template <int KF, int NL, int N1, int NO, bool WG>
 __global__ void __launch_bounds__(ENC_THREADS) plane_level_kernel(PlaneArgs a) {
   extern __shared__ __align__(16) float sm[];
-  const Weights p = load_weights(sm, a);
+  const Weights p = load_weights<WG>(sm, a);
   __syncthreads();
   const Level lv = make_level(a, p, a.level, blockIdx.y);
   if constexpr (KF > 0) {
@@ -344,15 +362,15 @@ __device__ __forceinline__ void level_band(const Level& lv, int v, int BH, float
   }
 }
 
-template <int KF, int NL, int N1, int NO>
+template <int KF, int NL, int N1, int NO, bool WG>
 __global__ void __launch_bounds__(SCAN_MAX_THREADS) plane_kernel(PlaneArgs a) {
   extern __shared__ __align__(16) float sm[];
   __shared__ float lg[R * MAX_L];
   __shared__ int win[RANS_WIN];
   const int b = blockIdx.x, L = NL ? NL : a.L, BH = a.BH;
   const int reach = 4 * (a.K / 2), W0 = a.W + 2 * reach, H0 = a.H + 2 * reach;
-  const Weights p = load_weights(sm, a);
-  float* xs = sm + ((params_size(a.nt, a.kf, a.L) + 3) & ~3);   // the staged tap rows
+  const Weights p = load_weights<WG>(sm, a);
+  float* xs = sm + (WG ? 0 : (params_size(a.nt, a.kf, a.L) + 3) & ~3);   // staged tap rows
   const int HW = a.H * a.W;
   float* q = a.qplane + (size_t)b * H0 * W0;
   const float pad = a.params[params_size(a.nt, a.kf, a.L) - 1 - a.L];
@@ -483,18 +501,45 @@ static bool valid(const PlaneArgs& a) {
 
 // The instance with every width at compile time: K = 5, kf = 24, L = 6.
 static bool fast(const PlaneArgs& a) {
-  return a.K == 5 && a.kf == 24 && a.L == 6 && a.nt[0] == 12 && a.nt[1] == 13 &&
-         a.nt[2] == 13 && a.nt[3] == 13;
+  return !(a.force & FORCE_GENERIC) && a.K == 5 && a.kf == 24 && a.L == 6 && a.nt[0] == 12 &&
+         a.nt[1] == 13 && a.nt[2] == 13 && a.nt[3] == 13;
 }
 
+// Dynamic shared memory: the weights unless wdev, then stage_floats (the
+// scan's staged tap rows).
+static size_t smem_bytes(const PlaneArgs& a, bool wdev, size_t stage_floats) {
+  const size_t np4 = wdev ? 0 : ((size_t)params_size(a.nt, a.kf, a.L) + 3) / 4 * 4;
+  return (np4 + stage_floats) * sizeof(float);
+}
+
+// Whether the weights stay in device memory for this launch: asked for, or
+// `in_smem` with them in shared memory would pass the card's opt-in limit.
+static cudaError_t weights_in_device(const void* in_smem, const PlaneArgs& a,
+                                     size_t stage_floats, bool* wdev) {
+  *wdev = true;
+  if (a.force & FORCE_WDEV) return cudaSuccess;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, in_smem);
+  if (err == cudaSuccess)
+    *wdev = fa.sharedSizeBytes + smem_bytes(a, false, stage_floats) > (size_t)optin;
+  return err;
+}
+
+// Launch the shared-memory or the device-memory instance of one kernel.
 // stage_floats: room behind the weights for the scan's staged tap rows.
 template <class Kernel>
-static int launch(Kernel kernel, const PlaneArgs& a, dim3 grid, int threads,
+static int launch(Kernel in_smem, Kernel in_dev, const PlaneArgs& a, dim3 grid, int threads,
                   cudaStream_t stream, size_t stage_floats = 0) {
-  const size_t smem =
-      (((size_t)params_size(a.nt, a.kf, a.L) + 3) / 4 * 4 + stage_floats) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  bool wdev;
+  cudaError_t err = weights_in_device((const void*)in_smem, a, stage_floats, &wdev);
+  if (err != cudaSuccess) return (int)err;
+  const Kernel kernel = wdev ? in_dev : in_smem;
+  const size_t smem = smem_bytes(a, wdev, stage_floats);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
@@ -506,9 +551,10 @@ extern "C" int plane_forward(PlaneArgs a, cudaStream_t stream) {
   if (!valid(a) || a.threads < 32 || a.threads > SCAN_MAX_THREADS || a.threads % 32 != 0)
     return (int)cudaErrorInvalidValue;
   if (fast(a))
-    return launch(plane_kernel<24, 6, 12, 13>, a, dim3(a.B), a.threads, stream,
-                  (size_t)STAGE_CELLS * stage_stride<24, 13>());
-  return launch(plane_kernel<0, 0, 0, 0>, a, dim3(a.B), a.threads, stream);
+    return launch(plane_kernel<24, 6, 12, 13, false>, plane_kernel<24, 6, 12, 13, true>, a,
+                  dim3(a.B), a.threads, stream, (size_t)STAGE_CELLS * stage_stride<24, 13>());
+  return launch(plane_kernel<0, 0, 0, 0, false>, plane_kernel<0, 0, 0, 0, true>, a, dim3(a.B),
+                a.threads, stream);
 }
 
 // Level a.level (1..4) of all a.B (image, plane) pairs at once: reads level
@@ -524,8 +570,11 @@ extern "C" int plane_level(PlaneArgs a, cudaStream_t stream) {
   const long per_pair = 2112 / a.B > 1 ? 2112 / a.B : 1;   // ~16 blocks an SM in all
   blocks = blocks > per_pair ? per_pair : blocks;
   const dim3 grid((unsigned)blocks, a.B);
-  if (fast(a)) return launch(plane_level_kernel<24, 6, 12, 13>, a, grid, ENC_THREADS, stream);
-  return launch(plane_level_kernel<0, 0, 0, 0>, a, grid, ENC_THREADS, stream);
+  if (fast(a))
+    return launch(plane_level_kernel<24, 6, 12, 13, false>,
+                  plane_level_kernel<24, 6, 12, 13, true>, a, grid, ENC_THREADS, stream);
+  return launch(plane_level_kernel<0, 0, 0, 0, false>, plane_level_kernel<0, 0, 0, 0, true>, a,
+                grid, ENC_THREADS, stream);
 }
 
 // The (freq, start) tables of all a.B (image, plane) pairs from the logits.
@@ -537,4 +586,22 @@ extern "C" int plane_tables(PlaneArgs a, cudaStream_t stream) {
   if (a.L == 6) plane_tables_kernel<6><<<(unsigned)blocks, ENC_THREADS, 0, stream>>>(a);
   else plane_tables_kernel<0><<<(unsigned)blocks, ENC_THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// Where the weights of the scan (scan = 1) or of a level pass (scan = 0)
+// live for the widths in `a`: 1 in device memory, 0 in shared memory, or a
+// negative cudaError.
+extern "C" int plane_weights_in_device(PlaneArgs a, int scan) {
+  bool wdev = false;
+  cudaError_t err;
+  if (scan && fast(a))
+    err = weights_in_device((const void*)plane_kernel<24, 6, 12, 13, false>, a,
+                            (size_t)STAGE_CELLS * stage_stride<24, 13>(), &wdev);
+  else if (scan)
+    err = weights_in_device((const void*)plane_kernel<0, 0, 0, 0, false>, a, 0, &wdev);
+  else
+    err = weights_in_device(fast(a) ? (const void*)plane_level_kernel<24, 6, 12, 13, false>
+                                    : (const void*)plane_level_kernel<0, 0, 0, 0, false>,
+                            a, 0, &wdev);
+  return err == cudaSuccess ? (int)wdev : -(int)err;
 }

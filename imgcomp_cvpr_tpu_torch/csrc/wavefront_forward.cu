@@ -69,11 +69,25 @@
 // stage_rows, which kernel 5 uses) and one or two channels a thread were
 // tried here and were slower.
 //
-// Template instances: <KF = 24, NL = 6> (every shipped config: layers 1 ->
+// Template instances: <KF = 24, NL = 6> (`pc cvpr/res_shallow`: layers 1 ->
 // 24, 24 -> 24 with 13 / 14 taps in registers, CO = 4 channels a thread with
-// float4 loads; 24 -> 6 with CO = 2) and <0, 0>, the generic instance for
-// any other width (one (cell, channel) a thread, run-time loops, one global
-// and one shared load per multiply: the first version's inner loop).
+// float4 loads; 24 -> 6 with CO = 2), <KF = 64, NL = 6> (`pc
+// cvpr/res_shallow_64`, the same tiles) and <0, 0>, the generic instance for
+// any other width (one (cell, channel) a thread, run-time loops, two loads per
+// multiply: the first version's inner loop).
+//
+// Where the weights live (WG). The packed weights of all four layers go to a
+// block's dynamic shared memory while they fit beside what else the entry
+// keeps there: up to kf ~38 at L = 6 in the scan (its step tables and
+// pointers take ~47 KB at the Kodak latent), ~43 in the encode. Past the
+// card's opt-in limit (cudaDevAttrMaxSharedMemoryPerBlockOptin, 227 KB on an
+// H100) all of them stay in device memory and are read through L1 / L2
+// (kf = 64: 474 KB of weights against a 50 MB L2). The host picks the
+// instance (choose_scan, encode_wdev); only where an operand comes from
+// changes, not the order of any sum, so the tables and streams are the same
+// bits with either placement. FwdArgs::force can ask for the device-memory
+// placement or the generic instance where they are not needed (tests, and
+// the comparisons that chip_smoke.py prints).
 //
 // Bound on the H100: operations, ~8.1 GFLOP per Kodak-size image in f32
 // over the unmasked taps of the four layer grids at kf=24 (chip_smoke.py
@@ -94,6 +108,8 @@ namespace cg = cooperative_groups;
 #define SCALE 65536u
 #define RANS_L 65536u
 #define THREADS 256
+#define FORCE_WDEV 1      // weights in device memory even where they fit
+#define FORCE_GENERIC 2   // the generic instance even where a fixed one exists
 
 #include "cdf.cuh"
 #include "layer_sum.cuh"
@@ -102,6 +118,7 @@ namespace cg = cooperative_groups;
 struct FwdArgs {
   int mode, B, T, n, kf, L, CQ, cap, G1, G2, G3, cluster;
   int N1, N2, N3, N4;
+  int force;         // FORCE_WDEV | FORCE_GENERIC, or 0: the host's own choice
   const float* params;
   const int *ptr1, *cells1, *taps1;
   const int *ptr2, *cells2, *taps2;
@@ -128,12 +145,18 @@ struct Params {
   const float *w1, *b1, *w2, *b2, *w3, *b3, *w4, *b4, *pad, *centers;
 };
 
-// Copy the packed weights into shared memory and slice them.
+// Slice the packed weights: copied into shared memory, or (WG) read where
+// they are, in device memory.
+template <bool WG>
 __device__ __forceinline__ Params load_params(float* sm, const float* src, int kf, int L) {
-  const int np = params_size(kf, L);
-  for (int i = threadIdx.x; i < np; i += blockDim.x) sm[i] = src[i];
+  const float* base = src;
+  if constexpr (!WG) {
+    const int np = params_size(kf, L);
+    for (int i = threadIdx.x; i < np; i += blockDim.x) sm[i] = src[i];
+    base = sm;
+  }
   Params p;
-  p.w1 = sm;
+  p.w1 = base;
   p.b1 = p.w1 + NT1 * kf;
   p.w2 = p.b1 + kf;
   p.b2 = p.w2 + NTO * kf * kf;
@@ -278,11 +301,11 @@ __device__ __forceinline__ void logit_layer(const FwdArgs& a, const Params& p, i
 // Layer-parallel encode: one launch per layer, then the table launch
 // ---------------------------------------------------------------------------
 
-template <int KF, int NL, int M>
+template <int KF, int NL, int M, bool WG>
 __global__ void __launch_bounds__(THREADS) encode_layer_kernel(FwdArgs a, int l) {
   extern __shared__ __align__(16) float sm[];
   const int kf = KF ? KF : a.kf, L = NL ? NL : a.L;
-  const Params p = load_params(sm, a.params, kf, L);
+  const Params p = load_params<WG>(sm, a.params, kf, L);
   __syncthreads();
   const int b = blockIdx.y;
   if (l < 4) {
@@ -336,7 +359,7 @@ __device__ __forceinline__ void cluster_wait() {
 
 // CO: output channels a thread owns in layers 1-3 (layer 4: at most 2); D:
 // taps' rows in flight (cell_sum).
-template <int KF, int NL, int CO, int D>
+template <int KF, int NL, int CO, int D, bool WG>
 __global__ void __launch_bounds__(THREADS, 1) wavefront_kernel(FwdArgs a) {
   extern __shared__ __align__(16) float sm[];
   __shared__ int win[RANS_WIN];
@@ -345,11 +368,12 @@ __global__ void __launch_bounds__(THREADS, 1) wavefront_kernel(FwdArgs a) {
   const int b = blockIdx.x / nb;
   const int kf = KF ? KF : a.kf, L = NL ? NL : a.L, n = a.n, T = a.T;
   constexpr int CO4 = CO > 2 ? 2 : CO;
-  const Params p = load_params(sm, a.params, kf, L);
-  // Behind the weights: the step's logits (CQ x L floats; rank 0's copy is
-  // the one every block writes), its (freq, cdf) tables (2 x CQ x L), its
-  // idx_cm row (CQ) and the four layers' step pointers (4 x (T + 1)).
-  const int np4 = (params_size(kf, L) + 3) & ~3;
+  const Params p = load_params<WG>(sm, a.params, kf, L);
+  // Behind the weights (if they are here): the step's logits (CQ x L floats;
+  // rank 0's copy is the one every block writes), its (freq, cdf) tables (2 x
+  // CQ x L), its idx_cm row (CQ) and the four layers' step pointers (4 x (T +
+  // 1)).
+  const int np4 = WG ? 0 : (params_size(kf, L) + 3) & ~3;
   float* lg_tab = sm + np4;
   int* f_tab = reinterpret_cast<int*>(lg_tab + a.CQ * L);
   int* c_tab = f_tab + a.CQ * L;
@@ -487,15 +511,29 @@ __global__ void __launch_bounds__(THREADS, 1) wavefront_kernel(FwdArgs a) {
     for (int i = 0; i < 10; ++i) a.prof[b * 10 + i] = prof[i];
 }
 
-// Dynamic shared memory of the scan: weights, the step's logits, (freq, cdf)
-// tables and idx_cm row, and the layers' step pointers.
-static size_t scan_smem(int kf, int L, int CQ, int T) {
-  const int np4 = (params_size(kf, L) + 3) & ~3;
-  return ((size_t)np4 + 3 * (size_t)CQ * L + CQ + 4 * ((size_t)T + 1)) * sizeof(float);
+// Dynamic shared memory of the scan: the weights (unless they stay in device
+// memory), the step's logits, (freq, cdf) tables and idx_cm row, and the
+// layers' step pointers.
+static size_t scan_smem(int kf, int L, int CQ, int T, bool wdev) {
+  const size_t np4 = wdev ? 0 : (params_size(kf, L) + 3) & ~3;
+  return (np4 + 3 * (size_t)CQ * L + CQ + 4 * ((size_t)T + 1)) * sizeof(float);
 }
 
 static bool valid(const FwdArgs& a) {
   return a.L >= 2 && a.L <= MAX_L && a.kf >= 1 && a.CQ % R == 0 && a.B >= 1;
+}
+
+// Whether `kernel` runs with `smem` bytes of dynamic shared memory on the
+// current device: its static shared memory plus smem within the opt-in limit.
+static cudaError_t fits(const void* kernel, size_t smem, bool* ok) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  if (err == cudaSuccess) *ok = fa.sharedSizeBytes + smem <= (size_t)optin;
+  return err;
 }
 
 static void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int blocks,
@@ -515,26 +553,48 @@ static void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, i
 
 typedef void (*ScanKernel)(FwdArgs);
 
-// The scan's instance for these widths: compile-time widths with 4 channels
-// a thread and 2 taps' rows in flight, or the generic one.
-static ScanKernel scan_kernel(int kf, int L) {
-  if (kf == 24 && L == 6) return wavefront_kernel<24, 6, 4, 2>;
-  return wavefront_kernel<0, 0, 1, 1>;
+struct ScanChoice {
+  ScanKernel kernel;
+  size_t smem;
+  bool wdev;
+};
+
+// The scan's instance for these widths and where its weights live:
+// compile-time widths with 4 channels a thread and 2 taps' rows in flight
+// (kf = 24 or 64 at L = 6), or the generic one; the weights in shared memory
+// if they fit (never at kf = 64, L = 6), else in device memory.
+static cudaError_t choose_scan(int kf, int L, int CQ, int T, int force, ScanChoice* c) {
+  const bool generic = (force & FORCE_GENERIC) || L != 6 || (kf != 24 && kf != 64);
+  const ScanKernel in_smem = generic ? wavefront_kernel<0, 0, 1, 1, false>
+                             : kf == 24 ? wavefront_kernel<24, 6, 4, 2, false> : nullptr;
+  const ScanKernel in_dev = generic ? wavefront_kernel<0, 0, 1, 1, true>
+                            : kf == 24 ? wavefront_kernel<24, 6, 4, 2, true>
+                                       : wavefront_kernel<64, 6, 4, 2, true>;
+  bool ok = false;
+  if (in_smem && !(force & FORCE_WDEV)) {
+    const cudaError_t err = fits((const void*)in_smem, scan_smem(kf, L, CQ, T, false), &ok);
+    if (err != cudaSuccess) return err;
+  }
+  c->wdev = !ok;
+  c->kernel = ok ? in_smem : in_dev;
+  c->smem = scan_smem(kf, L, CQ, T, c->wdev);
+  return cudaSuccess;
 }
 
 // The scan (mode 0 decode, mode 1 encode oracle) over clusters of a.cluster
 // blocks an image.
 extern "C" int wavefront_forward(FwdArgs a, cudaStream_t stream) {
   if (!valid(a) || a.cluster < 1 || a.cluster > 8) return (int)cudaErrorInvalidValue;
-  const size_t smem = scan_smem(a.kf, a.L, a.CQ, a.T);
-  ScanKernel kernel = scan_kernel(a.kf, a.L);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  ScanChoice c;
+  cudaError_t err = choose_scan(a.kf, a.L, a.CQ, a.T, a.force, &c);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(c.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)c.smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cluster_config(&cfg, &attr, a.B * a.cluster, a.cluster, smem, stream);
-  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  cluster_config(&cfg, &attr, a.B * a.cluster, a.cluster, c.smem, stream);
+  err = cudaLaunchKernelEx(&cfg, c.kernel, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -542,34 +602,35 @@ extern "C" int wavefront_forward(FwdArgs a, cudaStream_t stream) {
 // How many clusters of `cluster` blocks of the scan the card holds at once
 // (cudaOccupancyMaxActiveClusters), or a negative cudaError.
 extern "C" int wavefront_max_clusters(int kf, int L, int CQ, int T, int cluster) {
-  const size_t smem = scan_smem(kf, L, CQ, T);
-  ScanKernel kernel = scan_kernel(kf, L);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  ScanChoice c;
+  cudaError_t err = choose_scan(kf, L, CQ, T, 0, &c);
+  if (err != cudaSuccess) return -(int)err;
+  err = cudaFuncSetAttribute(c.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)c.smem);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cluster_config(&cfg, &attr, cluster, cluster, smem, nullptr);
+  cluster_config(&cfg, &attr, cluster, cluster, c.smem, nullptr);
   int num = 0;
-  err = cudaOccupancyMaxActiveClusters(&num, kernel, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&num, c.kernel, &cfg);
   return err == cudaSuccess ? num : -(int)err;
 }
 
-template <int KF, int NL, int M>
+template <int KF, int NL, int M, bool WG>
 static int launch_encode(const FwdArgs& a, cudaStream_t stream) {
-  const size_t smem = (size_t)params_size(a.kf, a.L) * sizeof(float);
+  const size_t smem = WG ? 0 : (size_t)params_size(a.kf, a.L) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      encode_layer_kernel<KF, NL, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      encode_layer_kernel<KF, NL, M, WG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int counts[4] = {a.N1, a.N2, a.N3, a.N4};
   const int per_image = 1056 / a.B > 1 ? 1056 / a.B : 1;   // ~8 blocks an SM in all
   for (int l = 1; l <= 4; ++l) {
-    const int groups = a.kf == 24 ? (l == 4 ? 3 : 6) : (l == 4 ? a.L : a.kf);
+    const int groups = KF ? (l == 4 ? NL / 2 : KF / 4) : (l == 4 ? a.L : a.kf);
     const long items = (long)((counts[l - 1] + M - 1) / M) * groups;
     long blocks = (items + THREADS - 1) / THREADS;
     blocks = blocks < 1 ? 1 : (blocks > per_image ? per_image : blocks);
-    encode_layer_kernel<KF, NL, M>
+    encode_layer_kernel<KF, NL, M, WG>
         <<<dim3((unsigned)blocks, a.B), THREADS, smem, stream>>>(a, l);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -581,11 +642,54 @@ static int launch_encode(const FwdArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// Where the layer-parallel encode keeps its weights: shared memory if they
+// fit and nothing asks otherwise (never at kf = 64, L = 6).
+static cudaError_t encode_wdev(const FwdArgs& a, bool* wdev) {
+  const bool fixed = a.L == 6 && (a.kf == 24 || a.kf == 64) && !(a.force & FORCE_GENERIC);
+  *wdev = true;
+  if ((a.force & FORCE_WDEV) || (fixed && a.kf == 64)) return cudaSuccess;
+  bool ok = false;
+  const cudaError_t err = fits(fixed ? (const void*)encode_layer_kernel<24, 6, 2, false>
+                                     : (const void*)encode_layer_kernel<0, 0, 1, false>,
+                               (size_t)params_size(a.kf, a.L) * sizeof(float), &ok);
+  *wdev = !ok;
+  return err;
+}
+
 // The layer-parallel teacher-forced encode: 4 layer launches and the table
 // launch on `stream`.
 extern "C" int wavefront_encode(FwdArgs a, cudaStream_t stream) {
   if (!valid(a)) return (int)cudaErrorInvalidValue;
+  bool wdev;
+  const cudaError_t err = encode_wdev(a, &wdev);
+  if (err != cudaSuccess) return (int)err;
   // Compile-time widths: a thread owns 2 cells x 4 channels (layer 4: x 2).
-  if (a.kf == 24 && a.L == 6) return launch_encode<24, 6, 2>(a, stream);
-  return launch_encode<0, 0, 1>(a, stream);
+  if (a.L == 6 && !(a.force & FORCE_GENERIC)) {
+    if (a.kf == 24)
+      return wdev ? launch_encode<24, 6, 2, true>(a, stream)
+                  : launch_encode<24, 6, 2, false>(a, stream);
+    if (a.kf == 64) return launch_encode<64, 6, 2, true>(a, stream);
+  }
+  return wdev ? launch_encode<0, 0, 1, true>(a, stream) : launch_encode<0, 0, 1, false>(a, stream);
+}
+
+// Where the weights of the scan (encode = 0) or of the layer-parallel encode
+// (encode = 1) live for these widths: 1 in device memory, 0 in shared
+// memory, or a negative cudaError.
+extern "C" int wavefront_weights_in_device(int kf, int L, int CQ, int T, int force,
+                                           int encode) {
+  bool wdev = false;
+  cudaError_t err;
+  if (encode) {
+    FwdArgs a{};
+    a.kf = kf;
+    a.L = L;
+    a.force = force;
+    err = encode_wdev(a, &wdev);
+  } else {
+    ScanChoice c;
+    err = choose_scan(kf, L, CQ, T, force, &c);
+    wdev = c.wdev;
+  }
+  return err == cudaSuccess ? (int)wdev : -(int)err;
 }

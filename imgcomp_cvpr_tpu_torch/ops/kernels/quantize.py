@@ -7,12 +7,18 @@ Counterpart of imgcomp_cvpr_tpu/ops/pallas/quantize.py (``_forward`` and
 plain version only for a CPU tensor. The straight-through ``qbar``
 arithmetic stays in models/quantizer.py, so qbar's cotangent reaches the
 backward through qsoft.
+
+The wrappers keep their host work small: the C functions are bound (with
+their argument types) once, the current device is entered only when it is
+not the tensor's, and besides its outputs kernel 7 uses one scratch buffer
+and ticket counter per (device, stream), made on the first call there.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -20,6 +26,14 @@ from . import build
 
 _BWD_THREADS = 256          # csrc/quantize_bwd.cu: THREADS
 _BWD_MAX_BLOCKS = 132 * 8   # 8 blocks for each of the H100's 132 SMs
+_MAX_CENTERS = 32           # csrc/quantize*.cu: MAX_CENTERS
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_ENTRIES = {   # C entry -> (csrc source, argument types)
+    'quantize_fwd': ('quantize', [_P, _LL, _P, _I, _F, _P, _P, _P, _P]),
+    'quantize_bwd': ('quantize_bwd', [_P, _P, _P, _LL, _P, _I, _F, _P, _P, _P, _P, _I, _P]),
+}
+_bound: Dict[str, Callable] = {}
+_bwd_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def quantize_plain(x: torch.Tensor, centers: torch.Tensor, sigma: float = 1.0
@@ -93,6 +107,35 @@ def _check(x: torch.Tensor, centers: torch.Tensor, what: str) -> None:
         raise ValueError(f'{what}: x on {x.device}, centers on {centers.device}')
 
 
+def _bind(entry: str) -> Callable:
+    """The C function ``entry``, bound with its argument types once."""
+    fn = _bound.get(entry)
+    if fn is None:
+        source, argtypes = _ENTRIES[entry]
+        fn = getattr(build.load(source), entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _bound[entry] = fn
+    return fn
+
+
+def _on(device: torch.device):
+    """torch.cuda.device(device), or nothing where it is current already."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _empty_like_aligned(x: torch.Tensor, dtype: torch.dtype, off: int) -> torch.Tensor:
+    """An empty 4-byte tensor of x's shape that starts ``off`` elements past a
+    16-byte boundary, as x does (off = x.data_ptr() % 16 // 4), so that the
+    kernels' 16-byte accesses line up (a fresh tensor starts 16-byte aligned;
+    only a view into another tensor's storage may not)."""
+    if not off:
+        return torch.empty(x.shape, dtype=dtype, device=x.device)
+    return torch.empty(x.numel() + off, dtype=dtype, device=x.device)[off:].view(x.shape)
+
+
 def quantize_fwd(x: torch.Tensor, centers: torch.Tensor, sigma: float = 1.0
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (...) f32, centers (L,) f32 -> (qsoft, qhard, symbols int32).
@@ -102,19 +145,15 @@ def quantize_fwd(x: torch.Tensor, centers: torch.Tensor, sigma: float = 1.0
         return quantize_plain(x, centers, sigma)
     xc = x.contiguous()
     cc = centers.contiguous()
-    qsoft = torch.empty_like(xc)
-    qhard = torch.empty_like(xc)
-    sym = torch.empty(xc.shape, dtype=torch.int32, device=xc.device)
-    lib = build.load('quantize')
-    fn = lib.quantize_fwd
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(xc.device):
-        err = fn(build.ptr(xc), xc.numel(), build.ptr(cc), cc.shape[0], float(sigma),
-                 build.ptr(qsoft), build.ptr(qhard), build.ptr(sym),
-                 build.stream_ptr(xc.device))
+    off = xc.data_ptr() % 16 // 4
+    qsoft = _empty_like_aligned(xc, torch.float32, off)
+    qhard = _empty_like_aligned(xc, torch.float32, off)
+    sym = _empty_like_aligned(xc, torch.int32, off)
+    fn = _bind('quantize_fwd')
+    with _on(xc.device):
+        err = fn(xc.data_ptr(), xc.numel(), cc.data_ptr(), cc.shape[0], float(sigma),
+                 qsoft.data_ptr(), qhard.data_ptr(), sym.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
     build.LAUNCHES['quantize'] += 1
     build.check(err, 'quantize_fwd')
     return qsoft, qhard, sym
@@ -122,8 +161,21 @@ def quantize_fwd(x: torch.Tensor, centers: torch.Tensor, sigma: float = 1.0
 
 def bwd_blocks(n: int) -> int:
     """Grid of kernel 7, from n alone: the order of the dcenters sums, and
-    so their bits, must not depend on anything else."""
-    return max(1, min(-(-n // _BWD_THREADS), _BWD_MAX_BLOCKS))
+    so their bits, must not depend on anything else. A thread takes 4
+    elements an iteration."""
+    return max(1, min(-(-n // (4 * _BWD_THREADS)), _BWD_MAX_BLOCKS))
+
+
+def _scratch(device: torch.device, stream: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 7's (blocks, L) partial sums and its ticket counter (0 between
+    launches: the last block resets it) for one (device, stream)."""
+    key = (device.index, stream)
+    out = _bwd_scratch.get(key)
+    if out is None:
+        out = (torch.empty(_BWD_MAX_BLOCKS * _MAX_CENTERS, dtype=torch.float32, device=device),
+               torch.zeros(1, dtype=torch.int32, device=device))
+        _bwd_scratch[key] = out
+    return out
 
 
 def quantize_bwd(x: torch.Tensor, centers: torch.Tensor,
@@ -144,21 +196,16 @@ def quantize_bwd(x: torch.Tensor, centers: torch.Tensor,
     gc = None if g is None else g.contiguous()
     ghc = None if gh is None else gh.contiguous()
     L = cc.shape[0]
-    blocks = bwd_blocks(xc.numel())
-    dx = torch.empty_like(xc)
+    dx = _empty_like_aligned(xc, torch.float32, xc.data_ptr() % 16 // 4)
     dcenters = torch.empty(L, dtype=torch.float32, device=xc.device)
-    partial = torch.empty(blocks, L, dtype=torch.float32, device=xc.device)
-    lib = build.load('quantize_bwd')
-    fn = lib.quantize_bwd
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(xc.device):
-        err = fn(build.ptr(xc), None if gc is None else build.ptr(gc),
-                 None if ghc is None else build.ptr(ghc), xc.numel(), build.ptr(cc), L,
-                 float(sigma), build.ptr(dx), build.ptr(dcenters), build.ptr(partial),
-                 blocks, build.stream_ptr(xc.device))
+    fn = _bind('quantize_bwd')
+    with _on(xc.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        partial, counter = _scratch(xc.device, stream)
+        err = fn(xc.data_ptr(), None if gc is None else gc.data_ptr(),
+                 None if ghc is None else ghc.data_ptr(), xc.numel(), cc.data_ptr(), L,
+                 float(sigma), dx.data_ptr(), dcenters.data_ptr(), partial.data_ptr(),
+                 counter.data_ptr(), bwd_blocks(xc.numel()), stream)
     build.LAUNCHES['quantize_bwd'] += 1
     build.check(err, 'quantize_bwd')
     return dx, dcenters

@@ -435,6 +435,37 @@ def test_layer_encode_tables_match_pallas(shape):
     assert not tf.numpy()[:, ~act].any() and not ts.numpy()[:, ~act].any()
 
 
+def test_layer_encode_tables_match_pallas_kf64():
+    """kf = 64, the width of pc cvpr/res_shallow_64 (the configs of both
+    packages, a weight init of JAX's): the layer-at-a-time tables against
+    JAX make_forward(enc_parallel=True) in interpret mode under the bound
+    of the kf = 8 tests: |delta| <= 2 on a flip, and at most the 2 flips
+    accepted at (4, 6, 7). A sum of 14 x 64 products rounds in another order
+    in the Pallas kernel's dots: 1 flip of 150 entries here (ROADMAP Queue
+    3)."""
+    shape = (3, 5, 5)
+    cfg, _ = jconfig.parse_spec('cvpr/res_shallow_64', 'pc')
+    tcfg, _ = tconfig.parse_spec('cvpr/res_shallow_64', 'pc')
+    assert cfg.arch_param__k == tcfg.arch_param__k == 64
+    jm = jpc.ProbClassifier(cfg, 6)
+    params = jm.init(jax.random.PRNGKey(3), (1, shape[1], shape[2], shape[0]))
+    tm = tpc.ProbClassifier(tcfg, 6, device='cpu')
+    tm.load_state_dict(tweights.pc_state_dict(jax.tree_util.tree_map(np.asarray, params)))
+    centers = np.linspace(-2.0, 2.0, 6).astype(np.float32)
+    syms = np.random.RandomState(3).randint(0, 6, (2,) + shape)
+    weights, _, jf, js, _, _ = _jax_tables(jm, cfg, params, centers, syms)
+    mine = tcc.fold_weights(tm, torch.from_numpy(centers))
+    for a, b in zip(mine, _folded_from_jax(weights, 64)):
+        np.testing.assert_allclose(a.detach().numpy(), b.numpy(), rtol=1e-6, atol=1e-6)
+    tf, ts = ck.wavefront_encode_plain(mine, shape, torch.from_numpy(syms.reshape(2, -1)))
+    act = ck.build_schedule(shape).idx_cm < np.prod(shape)
+    flips = ((tf.numpy() != jf) | (ts.numpy() != js)) & act[None]
+    assert np.abs(tf.numpy() - jf)[flips].max(initial=0) <= 2
+    assert np.abs(ts.numpy() - js)[flips].max(initial=0) <= 2
+    assert flips.sum() <= 2, (flips.sum(), act.sum() * 2)
+    assert not tf.numpy()[:, ~act].any() and not ts.numpy()[:, ~act].any()
+
+
 @pytest.mark.parametrize('shape', SHAPES)
 def test_layer_encode_streams_equal_step_ordered_streams(shape, monkeypatch):
     """Streams written from the layer-parallel tables (the codec's path)

@@ -184,16 +184,137 @@ def test_generic_instance_roundtrip(cuda_device):
                        syms)
 
 
+# ---------------------------------------------------------------------------
+# Context models past shared memory (kf = 64, `pc cvpr/res_shallow_64`)
+# ---------------------------------------------------------------------------
+
+def _pc64(device, seed):
+    cfg, _ = config_lib.parse_spec('cvpr/res_shallow_64', 'pc')
+    assert cfg.arch_param__k == 64
+    return pcl.init_params(pcl.ProbClassifier(cfg, 6, device=device), seed), cfg
+
+
+@pytest.mark.parametrize('shape', [(4, 6, 7), (6, 10, 12)])
+def test_k3_kf64_encode_equals_scan_plain_and_roundtrips(cuda_device, shape):
+    """kf = 64 at L = 6: the weights (474 KB) stay in device memory for the
+    scan and the encode; the layer-parallel tables equal the scan's on every
+    entry and the plain version's up to the flip allowance; the generic
+    instance gives the same tables as the compile-time one; a CRC-verified
+    round trip through the codec recovers the symbols."""
+    pc, cfg = _pc64(cuda_device, seed=12)
+    centers = torch.linspace(-2, 2, 6, device=cuda_device)
+    w = cuda_codec.fold_weights(pc, centers)
+    sched = ck.build_schedule(shape)
+    assert ck.weights_in_device(64, 6, sched.CQ, sched.T)
+    assert ck.weights_in_device(64, 6, sched.CQ, sched.T, encode=True)
+    syms = torch.from_numpy(np.random.RandomState(12).randint(0, 6, (3, int(np.prod(shape)))))
+    syms = syms.int().to(cuda_device)
+    fk, sk = ck.wavefront_forward(ck.MODE_ENCODE, w, shape, true_syms=syms)
+    fs, ss = ck.wavefront_forward(ck.MODE_ENCODE, w, shape, true_syms=syms, scan=True)
+    assert torch.equal(fk, fs) and torch.equal(sk, ss)
+    for force in (ck.FORCE_GENERIC, ck.FORCE_GENERIC | ck.FORCE_WDEV):
+        fg, sg = ck.wavefront_forward(ck.MODE_ENCODE, w, shape, true_syms=syms, force=force)
+        assert torch.equal(fk, fg) and torch.equal(sk, sg), force
+        fg, sg = ck.wavefront_forward(ck.MODE_ENCODE, w, shape, true_syms=syms, scan=True,
+                                      force=force)
+        assert torch.equal(fk, fg) and torch.equal(sk, sg), force
+    fp, sp = ck.wavefront_encode_plain(w, shape, syms)
+    assert ((fk != fp) | (sk != sp)).sum().item() <= int(1e-3 * syms.numel())
+    lc = codec.LatentCodec(pc, cfg, device=cuda_device)
+    build.reset_launches()
+    res = lc.encode_batch(syms.reshape((3,) + shape), centers)
+    dec = lc.decode_batch([r.bitstream for r in res], centers, verify=True)
+    assert torch.equal(dec.reshape(3, -1), syms)
+    assert build.LAUNCHES['wavefront_forward_encode'] == 1
+    assert build.LAUNCHES['wavefront_forward_decode'] == 1
+
+
+@pytest.mark.parametrize('force', [1, 2, 3])
+def test_k3_weight_placement_keeps_the_bits(cuda_device, force):
+    """kf = 24 (weights in shared memory by default): the weights read from
+    device memory (force 1), the generic instance (2) and both (3) give the
+    same encode tables, scan tables and decoded symbols as the default."""
+    shape = (6, 10, 12)
+    pc, cfg, centers, w, syms = _k3_case(cuda_device, shape, 24, 6, 2, seed=13)
+    sched = ck.build_schedule(shape)
+    assert not ck.weights_in_device(24, 6, sched.CQ, sched.T)
+    assert ck.weights_in_device(24, 6, sched.CQ, sched.T, force=ck.FORCE_WDEV)
+    ref = ck.wavefront_forward(ck.MODE_ENCODE, w, shape, true_syms=syms)
+    for scan in (False, True):
+        out = ck.wavefront_forward(ck.MODE_ENCODE, w, shape, true_syms=syms, scan=scan,
+                                   force=force)
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]), scan
+    coder = cuda_codec.CudaCoder(pc, cfg, device=cuda_device)
+    res = coder.encode_batch(syms.reshape((2,) + shape), centers)
+    pb = cuda_codec.parse_batch([r.bitstream for r in res],
+                                lambda s: ck.build_schedule(s).stream_cap,
+                                lambda s: ck.lane_totals(ck.build_schedule(s)))
+    out = ck.wavefront_forward(ck.MODE_DECODE, w, shape, force=force,
+                               streams=torch.from_numpy(pb.words).to(cuda_device),
+                               init_states=torch.from_numpy(pb.states).to(cuda_device),
+                               thresh=torch.from_numpy(pb.thresh).to(cuda_device))
+    assert torch.equal(out, syms)
+
+
+def test_k5_kf64_encode_equals_scan_plain_and_roundtrips(cuda_device):
+    """K = 5 at kf = 64 (`pc base` with arch_param__k = 64: 439 KB of weights
+    in device memory): the layer-parallel encode equals the plane-by-plane
+    scan, the CPU plain version up to the flip allowance, and a CRC-verified
+    round trip recovers the symbols."""
+    shape = (3, 12, 20)
+    pc, cfg = _planar_pc(cuda_device, K=5, kf=64, seed=14)
+    centers = torch.linspace(-2, 2, 6, device=cuda_device)
+    coder = planar_codec.PlanarCoder(pc, cfg, device=cuda_device)
+    _, fold = coder._prepare(shape, centers)
+    assert plk.weights_in_device(fold.top, shape, 5, scan=True)
+    assert plk.weights_in_device(fold.top, shape, 5, scan=False)
+    syms = torch.from_numpy(np.random.RandomState(14).randint(0, 6, (2,) + shape)).int()
+    syms = syms.to(cuda_device)
+    fk, sk = coder.encode_tables(syms, fold)
+    fs, ss = coder.encode_tables_scan(syms, fold)
+    assert torch.equal(fk, fs) and torch.equal(sk, ss)
+    cpu = planar_codec.PlanarCoder(pc.cpu(), cfg, device='cpu')
+    _, fold_cpu = cpu._prepare(shape, centers.cpu())
+    fp, sp = cpu.encode_tables(syms.cpu(), fold_cpu)
+    assert ((fk.cpu() != fp) | (sk.cpu() != sp)).sum().item() <= int(5e-3 * syms.numel() * 2)
+    pc.to(cuda_device)
+    lc = codec.LatentCodec(pc, cfg, device=cuda_device)
+    res = lc.encode_batch(syms, centers)
+    assert torch.equal(lc.decode_batch([r.bitstream for r in res], centers,
+                                       verify=True).long(), syms.long())
+
+
+@pytest.mark.parametrize('force', [1, 3])
+def test_k5_weight_placement_keeps_the_bits(cuda_device, force):
+    """K = 5, kf = 24 (the compile-time instance, weights in shared memory by
+    default): the scan and a level pass with the weights in device memory
+    (force 1; 3: and the generic instance) give the default path's bits."""
+    shape = (3, 12, 20)
+    coder, sched, fold, syms, bias = _plane_inputs(cuda_device, shape, K=5, plane=2, kf=24)
+    for force_l in (0, force):
+        assert plk.weights_in_device(fold.top, shape, 5, force=force_l) == bool(force_l)
+    tp = syms[:, 2].contiguous()
+    ref = plk.plane_forward(plk.MODE_ENCODE, fold.top, shape, 5, bias, true_plane=tp)
+    out = plk.plane_forward(plk.MODE_ENCODE, fold.top, shape, 5, bias, true_plane=tp,
+                            force=force)
+    assert torch.equal(out.fsel, ref.fsel) and torch.equal(out.ssel, ref.ssel)
+    for a, b in zip(out.acts, ref.acts):
+        assert torch.equal(a, b)
+    src = ref.q.reshape((2,) + sched.grids[0])
+    lv = plk.level_forward(1, fold.top, shape, 5, src, bias[0])
+    assert torch.equal(plk.level_forward(1, fold.top, shape, 5, src, bias[0], force=force), lv)
+
+
 def _planar_pc(device, K=5, kf=8, L=6, seed=0):
     cfg, _ = config_lib.parse_spec('base', 'pc')
     cfg = cfg.replace(kernel_size=K, arch_param__k=kf)
     return pcl.init_params(pcl.ProbClassifier(cfg, L, device=device), seed), cfg
 
 
-def _plane_inputs(device, shape, K=5, b=2, seed=0, plane=2):
+def _plane_inputs(device, shape, K=5, b=2, seed=0, plane=2, kf=8):
     """Bias rows of plane ``plane`` with real history (planes below it
     encoded through the plain version), the fold and the symbols."""
-    pc, cfg = _planar_pc(device, K=K, seed=seed)
+    pc, cfg = _planar_pc(device, K=K, kf=kf, seed=seed)
     centers = torch.linspace(-2, 2, 6, device=device)
     coder = planar_codec.PlanarCoder(pc, cfg, device=device)
     sched, fold = coder._prepare(shape, centers)
@@ -421,8 +542,72 @@ def test_planar_decode_any_batch(cuda_device, b):
 
 
 # ---------------------------------------------------------------------------
+# Kernel 1: vector body, scalar head and tail
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('n', [1, 3, 4, 5, 4 * 1000 + 1, 4 * 1000 + 3])
+@pytest.mark.parametrize('offset', [0, 1, 2, 3])
+@pytest.mark.parametrize('num_centers', [6, 9])
+def test_quantize_kernel_any_length_and_alignment(cuda_device, n, offset, num_centers):
+    """Kernel 1 on a view that starts `offset` floats past a 16-byte boundary
+    and at lengths that are and are not a multiple of 4: symbols and qhard
+    equal the plain version's, qsoft within the tolerance of
+    test_quantize_kernel_matches_plain; the outputs share x's offset."""
+    rng = np.random.RandomState(n + offset)
+    base = torch.from_numpy(rng.randn(n + 8).astype(np.float32) * 2).to(cuda_device)
+    x = base[offset:offset + n]
+    assert x.data_ptr() % 16 == 4 * offset
+    c = torch.from_numpy(np.sort(rng.uniform(-2, 2, num_centers)).astype(np.float32))
+    c = c.to(cuda_device)
+    qs, qh, sym = qk.quantize_fwd(x, c)
+    ps, ph, psym = qk.quantize_plain(x, c)
+    torch.cuda.synchronize()
+    assert all(t.data_ptr() % 16 == 4 * offset for t in (qs, qh, sym))
+    assert torch.equal(sym, psym) and torch.equal(qh, ph)
+    assert (qs - ps).abs().max().item() <= 1e-6
+
+
+# ---------------------------------------------------------------------------
 # Training (kernel 7)
 # ---------------------------------------------------------------------------
+
+def test_quantize_bwd_one_launch_and_the_same_bits_on_two_streams(cuda_device):
+    """Kernel 7 is one launch a call (the ticket's last block adds the rows):
+    dcenters is bit-equal over two calls on one stream and on a second
+    stream, each stream has its own scratch, and the counter is 0 again
+    after every call."""
+    x, c, g, gh = _bwd_inputs(cuda_device, (30, 20, 20, 32), seed=3)
+    before = build.LAUNCHES['quantize_bwd']
+    dx, dc = qk.quantize_bwd(x, c, g, gh)
+    assert build.LAUNCHES['quantize_bwd'] == before + 1
+    dx2, dc2 = qk.quantize_bwd(x, c, g, gh)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dx3, dc3 = qk.quantize_bwd(x, c, g, gh)
+    torch.cuda.synchronize()
+    assert torch.equal(dc, dc2) and torch.equal(dc, dc3)
+    assert torch.equal(dx, dx2) and torch.equal(dx, dx3)
+    keys = [k for k in qk._bwd_scratch if k[0] == x.device.index]
+    assert {k[1] for k in keys} >= {torch.cuda.current_stream().cuda_stream, side.cuda_stream}
+    assert all(qk._bwd_scratch[k][1].item() == 0 for k in keys)
+    px, pc_ = qk.quantize_bwd_plain(x, c, g, gh)
+    assert (dx - px).abs().max().item() <= 1e-5 * max(1.0, px.abs().max().item())
+    assert (dc - pc_).abs().max().item() <= 4e-5 * float(x.numel()) ** 0.5
+
+
+@pytest.mark.parametrize('offset', [1, 3])
+def test_quantize_bwd_unaligned_view(cuda_device, offset):
+    """An x that starts off a 16-byte boundary (all scalar where g is
+    aligned otherwise): dx and dcenters within the plain tolerance."""
+    x, c, g, _ = _bwd_inputs(cuda_device, (4 * 997 + offset,), seed=4)
+    xs = x[offset:]
+    gs = g[:xs.numel()]
+    dx, dc = qk.quantize_bwd(xs, c, gs, None)
+    px, pc_ = qk.quantize_bwd_plain(xs, c, gs, None)
+    assert (dx - px).abs().max().item() <= 1e-5 * max(1.0, px.abs().max().item())
+    assert (dc - pc_).abs().max().item() <= 4e-5 * float(xs.numel()) ** 0.5
+
 
 def _bwd_inputs(device, shape, num_centers=6, seed=0):
     rng = np.random.RandomState(seed)
