@@ -39,6 +39,14 @@ Phases, one line each:
      seeded K=5 context model: AE encode -> per level bias rows + kernel 5
      encode (5 launches) -> kernel 6 -> container (impl id 6) -> parse -> per plane
      kernel 5 decode -> device CRC -> AE decode, bit-exact, with leg times;
+  4c. the serving path of bench_torch.py: its depth-2 pipelined loop over
+     the codec's submit / finish (decode with device_out) at B=16 with the
+     trained K=3 model, f32 and then bf16 towers; submit / finish streams
+     (also with two handles outstanding) byte-equal to a straight pass
+     through the kernel wrappers for K=3 (B=16) and K=5 (B=3); the submits
+     under torch.cuda.set_sync_debug_mode('error') (no wait for the card);
+     the bf16 round trip CRC-verified, its symbols' agreement with the f32
+     towers' (>= 99%) and both PSNRs; one-image roundtrip and decode;
   4b. context models whose weights pass a block's shared memory (kf = 64,
      seeded): the K=3 main path with `pc cvpr/res_shallow_64` and the
      trained AE at B=16, kernel 2's tables there against its scan and its
@@ -1061,6 +1069,157 @@ def wide_context_models(dev, ae, ae_config, x, centers, fw24):
     return launches
 
 
+def straight_streams(pc, pc_config, syms, centers):
+    """An encode as one straight pass through the kernel wrappers, with no
+    handle in between (the flow of encode_batch before the submit / finish
+    split): tables, reverse encode, serialize. The reference of phase 4c's
+    stream equality."""
+    from imgcomp_cvpr_tpu_torch.coding import codec as codec_lib, cuda_codec
+    from imgcomp_cvpr_tpu_torch.coding import cuda_kernel as ck, planar_codec, rans
+    from imgcomp_cvpr_tpu_torch.coding import planar_kernel as plk
+    b, shape = syms.shape[0], tuple(syms.shape[1:])
+    syms = syms.int().contiguous()
+    if pc_config.kernel_size == 3:
+        fsel, ssel = ck.wavefront_forward(ck.MODE_ENCODE, cuda_codec.fold_weights(pc, centers),
+                                          shape, true_syms=syms.reshape(b, -1))
+        totals, impl = ck.lane_totals(ck.build_schedule(shape)), codec_lib.IMPL_CUDA
+    else:
+        coder = planar_codec.PlanarCoder(pc, pc_config, device=syms.device)
+        fsel, ssel = coder.encode_tables(syms, planar_codec.fold_planar(pc, centers))
+        totals, impl = coder.lane_totals(shape), codec_lib.IMPL_CUDA_PLANAR
+    tail = totals.max() >= codec_lib.TAIL_MIN_LANE_SYMBOLS
+    x0 = 1 if tail else rans.RANS_L
+    out = (ck.rans_reverse(fsel, ssel, shape, x0) if pc_config.kernel_size == 3
+           else plk.plane_reverse(fsel, ssel, shape, pc_config.kernel_size, x0))
+    words, n_words, states, k = (t.cpu().numpy() for t in out)
+    host = syms.cpu().numpy()
+    return [codec_lib.serialize_stream(
+        shape, words[i, :n_words[i]][::-1].astype(np.uint32), states[i].view(np.uint32),
+        codec_lib.symbol_crc(host[i]), impl_id=impl, k=k[i] if tail else None)
+        for i in range(b)]
+
+
+def serving_path(dev, ae_config, ae, lc, lc5, pc, pc_config, pc5, pc5_config, x, centers,
+                 one_pass_mps):
+    """Phase 4c: the serving path that bench_torch.py times, on the card.
+      - bench_torch.run_pipeline (depth-2 pipeline over the codec's submit /
+        finish, decode with device_out) at B=16 Kodak size with the trained
+        K=3 model, f32 towers then bf16 towers, 2 loops x 2 batches each,
+        with the launch counts from 0 over each dtype's loops;
+      - submit / finish streams byte-equal to a straight pass through the
+        kernel wrappers at B=16 (K=3) and B=3 (K=5), also with two handles
+        outstanding finished in order;
+      - the submits (symbols on the card and numpy, host centers) under
+        torch.cuda.set_sync_debug_mode('error'): none waits for the card;
+        the AE encode under 'warn', its synchronizing calls counted;
+      - the bf16 round trip CRC-verified bit-exact, its symbols' agreement
+        with the f32 towers' (raises below the CPU test's 99% bound), the
+        PSNR of each reconstruction against the input, the bf16 AE legs;
+      - one-image roundtrip and decode(device_out=False) of image 0.
+    Returns the launch counts of the bf16 pipelined loops."""
+    import warnings
+    import torch
+    import bench_torch
+    from imgcomp_cvpr_tpu_torch.coding import cuda_kernel as ck
+    from imgcomp_cvpr_tpu_torch.models import autoencoder as ae_lib
+    from imgcomp_cvpr_tpu_torch.ops.kernels import build
+    t_phase = time.time()
+    B, H, W, _ = x.shape
+    mp = B * H * W / 1e6
+    host_c = centers.cpu().numpy()
+    ae16 = ae_lib.CVPRAutoencoder(ae_config, device=dev, dtype=torch.bfloat16)
+    ae16.load_state_dict(ae.state_dict())          # the trained float32 parameters
+    loops, launches = {}, {}
+    for name, model in (('f32', ae), ('bf16', ae16)):
+        torch.cuda.synchronize()
+        build.reset_launches()
+        loops[name] = [mp / bench_torch.run_pipeline(lc, model, x, host_c, 2, dev).seconds
+                       for _ in range(2)]
+        launches[name] = dict(build.LAUNCHES)
+        for k in ('quantize', 'wavefront_forward_encode', 'wavefront_forward_decode',
+                  'rans_reverse'):
+            if launches[name][k] < 1:
+                raise AssertionError(f'4c: kernel {k} was not launched on the {name} pipeline')
+    shape = tuple(bench_torch.ae_encode_syms(ae, x[:1]).shape[1:])
+    cols = lc.coder(lc.impl_id)._cols[shape]
+    cap = ck.build_schedule(shape).stream_cap
+    print(f'[4c pipelined] bench_torch.run_pipeline, K=3 trained, B={B} {H}x{W}, 2 loops x 2 '
+          f'batches: f32 towers {[round(v, 4) for v in loops["f32"]]} MP/s, bf16 towers '
+          f'{[round(v, 4) for v in loops["bf16"]]} MP/s (phase 4 one pass, f32: '
+          f'{one_pass_mps:.4f} MP/s); launches f32 {launches["f32"]}, bf16 '
+          f'{launches["bf16"]}; stream words copied at submit (predicted from the batch '
+          f'before): {cols} an image = {4 * cols * B} bytes at B={B}, {4 * cols * 64} at B=64 '
+          f'(the whole buffer: {4 * cap * B} / {4 * cap * 64} bytes)', flush=True)
+
+    syms = bench_torch.ae_encode_syms(ae, x)
+    syms5 = syms[:3].contiguous()
+    for name, codec, model, s in (('K=3', lc, pc, syms), ('K=5', lc5, pc5, syms5)):
+        cfg = pc_config if codec is lc else pc5_config
+        ref = straight_streams(model, cfg, s, centers)
+        if [r.bitstream for r in codec.encode_batch(s, host_c)] != ref:
+            raise AssertionError(f'4c {name}: encode_batch streams differ from the straight pass')
+        half = s.shape[0] // 2
+        h1 = codec.encode_batch_submit(s[:half], host_c)
+        h2 = codec.encode_batch_submit(s[half:].cpu().numpy(), host_c)
+        if [r.bitstream for r in codec.encode_batch_finish(h1)
+                + codec.encode_batch_finish(h2)] != ref:
+            raise AssertionError(f'4c {name}: two outstanding handles differ')
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            t0 = time.time()
+            he = codec.encode_batch_submit(s, host_c)
+            t_enc = time.time() - t0
+            t0 = time.time()
+            hd = codec.decode_batch_submit(ref, host_c)
+            t_dec = time.time() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        t0 = time.time()
+        ok = [r.bitstream for r in codec.encode_batch_finish(he)] == ref
+        t_fin = time.time() - t0
+        dec = codec.decode_batch_finish(hd)
+        if not ok or not torch.equal(dec, s):
+            raise AssertionError(f'4c {name}: submits under sync-debug mode differ')
+        print(f'[4c streams] {name}, B={s.shape[0]}: encode_batch and submit / finish (also two '
+              f'handles outstanding, device and numpy symbols) byte-equal to the straight pass; '
+              f'encode and decode submits raise no synchronizing call under '
+              f'set_sync_debug_mode("error") (host ms: encode submit {t_enc * 1e3:.1f}, decode '
+              f'submit {t_dec * 1e3:.1f}, encode finish {t_fin * 1e3:.1f})', flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('warn')
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            bench_torch.ae_encode_syms(ae16, x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ae_syncs = sum('synchroniz' in str(w.message) for w in caught)
+
+    launches16, rt16 = main_path(ae16, lc, x, centers)
+    syms16 = rt16['syms']
+    agree = (syms16 == syms).double().mean().item()
+    with torch.no_grad():
+        rec32 = ae.decode(centers[syms.long()].permute(0, 2, 3, 1))
+    psnr32 = 10 * np.log10(255.0 ** 2 / torch.mean((rec32 - x) ** 2).item())
+    if agree < 0.99:
+        raise AssertionError(f'4c: bf16 symbols agree with f32 on {agree:.5f} < 0.99')
+    print(f'[4c bf16] trained AE with bf16 towers, K=3, B={B}: ' + roundtrip_line(rt16)
+          + f'; symbols equal to the f32 towers\' on {agree * 100:.3f}% (bound 99%); PSNR '
+          f'against the input: bf16 {rt16["psnr"]:.3f} dB, f32 {psnr32:.3f} dB; '
+          f'synchronizing calls in a bf16 AE encode: {ae_syncs}', flush=True)
+
+    img0 = syms[0].cpu().numpy()
+    rt = lc.roundtrip(img0, host_c)
+    one = lc.decode(rt.bitstream, host_c)
+    if one.dtype != np.int32 or not np.array_equal(one, img0):
+        raise AssertionError('4c: decode(device_out=False) of image 0 differs')
+    print(f'[4c one image] roundtrip of image 0 bit-exact ({rt.num_bits} bits, '
+          f'{rt.num_bits / (H * W):.5f} bpp); decode returns np.int32 {one.shape}; phase '
+          f'{time.time() - t_phase:.1f} s', flush=True)
+    return launches['bf16']
+
+
 def bound(nbytes, flops):
     t_b, t_f = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_F32_FLOPS * 1e3
     return (t_b, 'bytes') if t_b >= t_f else (t_f, 'operations')
@@ -1286,6 +1445,12 @@ def main(argv):
                  else 'K=5 seeded pc base, impl id 6')
         print(f'[{phase} main path] {model}, B={BATCH} {IMG_H}x{IMG_W} latent {shape}: '
               + roundtrip_line(rt), flush=True)
+        if phase == 4:
+            one_pass_mps = rt['mp'] / rt['wall']
+
+    # ---- phase 4c: the serving path of bench_torch.py --------------------
+    launches['4c'] = serving_path(dev, ae_config, ae, lc, lc5, pc, pc_config, pc5, pc5_config,
+                                  x, centers, one_pass_mps)
 
     # ---- phase 4b: context models past shared memory (kf = 64) -----------
     launches['4b'] = wide_context_models(dev, ae, ae_config, x, centers, fw)

@@ -393,13 +393,57 @@ class LatentCodec:
                     'cuda_planar, id 6)')
         return self._coders[impl_id]
 
-    def encode_batch(self, symbols, centers) -> Tuple[EncodeResult, ...]:
-        return self.coder(self.impl_id).encode_batch(symbols, centers)
+    def encode_batch_submit(self, symbols, centers):
+        """Enqueue a batch's encode on the current stream and return a handle
+        for encode_batch_finish without waiting for the card. symbols (B, C,
+        H, W) int: a tensor on the codec's device is range-checked there
+        (finish raises), anything else on the host (raises here). centers
+        (L,): a host array keeps the submit free of any wait; a CUDA tensor
+        costs one read of its values."""
+        return self.coder(self.impl_id).encode_batch_submit(symbols, centers)
 
-    def decode_batch(self, bitstreams, centers, verify: bool = True) -> torch.Tensor:
-        """-> (B, C, H, W) int32 symbols, through the coder of the streams'
-        impl id (one id per batch)."""
+    def encode_batch_finish(self, handle) -> Tuple[EncodeResult, ...]:
+        """Wait for that batch's event only, then serialize its streams."""
+        return self.coder(handle.impl_id).encode_batch_finish(handle)
+
+    def encode_batch(self, symbols, centers) -> Tuple[EncodeResult, ...]:
+        return self.encode_batch_finish(self.encode_batch_submit(symbols, centers))
+
+    def decode_batch_submit(self, bitstreams, centers):
+        """Parse, upload and enqueue a decode through the coder of the
+        streams' impl id (one id per batch); returns a handle for
+        decode_batch_finish without waiting for the card."""
         ids = {stream_impl_id(bs) for bs in bitstreams}
         if len(ids) != 1:
             raise ValueError(f'mixed impl ids {sorted(ids)} in one decode batch')
-        return self.coder(ids.pop()).decode_batch(bitstreams, centers, verify=verify)
+        return self.coder(ids.pop()).decode_batch_submit(bitstreams, centers)
+
+    def decode_batch_finish(self, handle, verify: bool = True, device_out: bool = True):
+        """-> (B, C, H, W) int32 symbols. device_out=True (the port's
+        default) returns the tensor on the codec's device; device_out=False
+        returns what the reference returns, a host np.int32 array. With
+        verify, waits for the batch's event and raises unless every image's
+        device-computed checksum matches its container's."""
+        from .cuda_codec import finish_decode
+        return finish_decode(handle, verify, device_out)
+
+    def decode_batch(self, bitstreams, centers, verify: bool = True, device_out: bool = True):
+        """decode_batch_finish(decode_batch_submit(...)): see there."""
+        return self.decode_batch_finish(self.decode_batch_submit(bitstreams, centers),
+                                        verify, device_out)
+
+    def encode(self, symbols_chw, centers) -> EncodeResult:
+        """One (C, H, W) volume through the B=1 batch path."""
+        return self.encode_batch(symbols_chw[None], centers)[0]
+
+    def decode(self, bitstream: bytes, centers, verify: bool = True) -> np.ndarray:
+        """One stream -> (C, H, W) np.int32 symbols on the host."""
+        return self.decode_batch([bitstream], centers, verify=verify, device_out=False)[0]
+
+    def roundtrip(self, symbols_chw, centers) -> EncodeResult:
+        """Encode, decode and assert a bit-exact recovery of a host (C, H, W)
+        volume (the reference's oracle, ref bit_counter.py:68)."""
+        result = self.encode(symbols_chw, centers)
+        decoded = self.decode(result.bitstream, centers)
+        np.testing.assert_array_equal(np.asarray(symbols_chw, np.int32), decoded)
+        return result

@@ -19,6 +19,9 @@ TAIL_MIN_LANE_SYMBOLS; a lane whose warmup exceeds K_CAP sends the batch back
 through kernel 6 with x0 = RANS_L). ``encode_tables_scan`` keeps the
 plane-by-plane teacher-forced scan as the consistency oracle.
 
+Submit / finish as in cuda_codec (counterpart planar_codec.py:621-839):
+submit enqueues and returns, finish waits for its batch's event only.
+
 Bias rows are F.conv2d (TF32 off) run one image and one plane at a time, on
 the same (1, (kd-1) * cin, H_l, W_l) input in encode and decode: every float
 that feeds a CDF is then a fixed function of one image's data, whatever the
@@ -27,6 +30,7 @@ batch, so a stream decodes alone exactly as it was encoded in a batch.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -39,7 +43,6 @@ from . import codec as codec_lib
 from . import cuda_codec
 from . import planar
 from . import planar_kernel as pk
-from . import rans
 
 
 class PlanarFold(NamedTuple):
@@ -84,11 +87,12 @@ class PlanarCoder:
         self.pc = pc
         self.K = pc_config.kernel_size
         self.L = pc.num_centers
+        self._folds = cuda_codec.FoldCache(fold_planar)
+        self._cols = {}        # latent shape -> stream words to copy at submit
 
     def _prepare(self, latent_shape, centers):
-        centers = torch.as_tensor(centers, dtype=torch.float32).to(self.device)
         return (planar.build_planar_schedule(tuple(latent_shape), self.K),
-                fold_planar(self.pc, centers))
+                self._folds.get(self.pc, centers, self.device))
 
     def lane_totals(self, latent_shape) -> np.ndarray:
         """(R,) active symbols per rANS lane over the whole volume."""
@@ -191,40 +195,36 @@ class PlanarCoder:
             self._push(hist, out)
         return fsel.reshape(b, -1, planar.R), ssel.reshape(b, -1, planar.R)
 
-    def encode_batch(self, symbols, centers) -> Tuple[codec_lib.EncodeResult, ...]:
-        """symbols: (B, C, H, W) int, a tensor (any device) or numpy."""
-        syms = torch.as_tensor(symbols).to(self.device)
+    def encode_batch_submit(self, symbols, centers) -> cuda_codec.EncodeHandle:
+        """Enqueue an encode (kernel 5's level passes with their bias rows,
+        kernel 6, the checksums, the theoretical bits, the copies to pinned
+        buffers) without waiting for the card; as CudaCoder's."""
+        syms, host_syms, bad = cuda_codec.device_symbols(symbols, self.L, self.device)
         latent_shape = tuple(int(v) for v in syms.shape[1:])
-        sched, fold = self._prepare(latent_shape, centers)
-        syms = syms.int().contiguous()
-        if int(syms.min()) < 0 or int(syms.max()) >= self.L:
-            raise ValueError(f'symbols must lie in [0, {self.L})')
+        _, fold = self._prepare(latent_shape, centers)
         fsel, ssel = self.encode_tables(syms, fold)
         tail = int(self.lane_totals(latent_shape).max()) >= codec_lib.TAIL_MIN_LANE_SYMBOLS
-        x0 = 1 if tail else rans.RANS_L
-        words, n_words, states, kwarm = pk.plane_reverse(fsel, ssel, latent_shape,
-                                                         self.K, x0)
-        if tail and int(kwarm.max()) > codec_lib.K_CAP:
-            # Pathological: a lane needs > K_CAP warmup symbols to reach
-            # RANS_L. Re-encode the batch with the classic seed.
-            tail = False
-            words, n_words, states, kwarm = pk.plane_reverse(
-                fsel, ssel, latent_shape, self.K, rans.RANS_L)
-        active = torch.from_numpy(pk._full_active(sched)).to(self.device)
-        return cuda_codec.serialize_batch(
-            latent_shape, words, n_words, states, kwarm,
-            cuda_codec.theoretical_bits(fsel, active),
-            cuda_codec.checksums(syms.reshape(syms.shape[0], -1)), tail,
-            codec_lib.IMPL_CUDA_PLANAR,
-            syms.cpu().numpy() if isinstance(symbols, np.ndarray) else None)
+        return cuda_codec.submit_encode(
+            latent_shape, codec_lib.IMPL_CUDA_PLANAR, self.L,
+            lambda x0: pk.plane_reverse(fsel, ssel, latent_shape, self.K, x0), tail,
+            cuda_codec.theoretical_bits(fsel, _active(latent_shape, self.K, str(self.device))),
+            cuda_codec.checksums(syms.reshape(syms.shape[0], -1)), bad, host_syms,
+            self._cols.get(latent_shape))
+
+    def encode_batch_finish(self, handle: cuda_codec.EncodeHandle
+                            ) -> Tuple[codec_lib.EncodeResult, ...]:
+        return cuda_codec.finish_encode(handle, self._cols)
+
+    def encode_batch(self, symbols, centers) -> Tuple[codec_lib.EncodeResult, ...]:
+        """symbols: (B, C, H, W) int, a tensor (any device) or numpy."""
+        return self.encode_batch_finish(self.encode_batch_submit(symbols, centers))
 
     # -- decode ---------------------------------------------------------------
 
-    def decode_batch(self, bitstreams: Sequence[bytes], centers,
-                     verify: bool = True) -> torch.Tensor:
-        """-> (B, C, H, W) int32 symbols on the coder's device. With verify,
-        raises unless every image's device-computed checksum matches its
-        container's."""
+    def decode_batch_submit(self, bitstreams: Sequence[bytes], centers
+                            ) -> cuda_codec.DecodeHandle:
+        """Parse on the host, upload without waiting, enqueue the plane loop
+        (bias rows and kernel 5's scan a plane) and the checksums."""
         pb = cuda_codec.parse_batch(
             bitstreams,
             lambda s: planar.build_planar_schedule(tuple(s), self.K).stream_cap,
@@ -234,11 +234,9 @@ class PlanarCoder:
         sched, fold = self._prepare(latent_shape, centers)
         dev = self.device
         b = len(pb.crcs)
-        streams = torch.from_numpy(pb.words).to(dev)
-        states = torch.from_numpy(pb.states).to(dev)
+        streams, states, thresh = cuda_codec.upload_parsed(pb, sched.stream_cap, dev)
         gptr = torch.zeros(b, dtype=torch.int32, device=dev)
-        thresh = torch.from_numpy(pb.thresh).to(dev)
-        plane_tot = torch.from_numpy(planar.plane_totals(sched)).to(dev)
+        plane_tot = _plane_totals(latent_shape, self.K, str(dev))
         syms = torch.empty(b, C, H, W, dtype=torch.int32, device=dev)
         hist = self._history(fold, sched, b)
         for d in range(C):
@@ -250,6 +248,27 @@ class PlanarCoder:
                                    thresh=(thresh - d * plane_tot).int().contiguous())
             syms[:, d], states, gptr = out.syms, out.states, out.gptr
             self._push(hist, out)
-        if verify:
-            cuda_codec.verify_crcs(syms.reshape(b, -1), pb.crcs)
-        return syms
+        return cuda_codec.submit_checks(syms, pb.crcs)
+
+    def decode_batch_finish(self, handle: cuda_codec.DecodeHandle, verify: bool = True,
+                            device_out: bool = True):
+        return cuda_codec.finish_decode(handle, verify, device_out)
+
+    def decode_batch(self, bitstreams: Sequence[bytes], centers, verify: bool = True,
+                     device_out: bool = True):
+        """-> (B, C, H, W) int32 symbols (see cuda_codec.finish_decode)."""
+        return self.decode_batch_finish(self.decode_batch_submit(bitstreams, centers),
+                                        verify, device_out)
+
+
+@functools.lru_cache(maxsize=8)
+def _active(latent_shape, K: int, device: str) -> torch.Tensor:
+    """(C * T2, R) bool activity of the (plane, step) rows on ``device``."""
+    return torch.from_numpy(pk._full_active(planar.build_planar_schedule(latent_shape, K))
+                            ).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def _plane_totals(latent_shape, K: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(planar.plane_totals(planar.build_planar_schedule(latent_shape, K))
+                            ).to(device)

@@ -7,14 +7,24 @@ match flax's (eps 1e-5, (x - mean) * (scale * rsqrt(var + eps)) + bias):
 with ``train`` it normalizes with the batch mean and the biased batch
 variance E[x^2] - E[x]^2 (clipped at 0) and moves the running statistics
 as ra = 0.9 ra + 0.1 batch with that same biased variance; without, it
-uses the running statistics. The towers run in float32 and NCHW
-internally; the public methods take and return NHWC like the JAX package.
-Module and parameter names mirror the flax tree so weights.py can map a
-parameter tree one key to one tensor.
+uses the running statistics. The towers run NCHW internally; the public
+methods take and return NHWC like the JAX package. Module and parameter
+names mirror the flax tree so weights.py can map a parameter tree one key
+to one tensor.
+
+``dtype`` is the towers' compute dtype, as in the reference (its
+autoencoder.py:65-80, 100, 135, 174); the parameters stay float32. Each conv
+casts its input and weight to ``dtype``; BatchNorm upcasts the conv output
+to float32, normalizes there and casts back (flax's ``_normalize`` computes
+``x - mean`` and the scale in float32, because the float32 running
+statistics promote it, then casts to ``dtype``); ReLU and the residual adds
+run in ``dtype``. The bottleneck (heatmap, quantizer) and the decoder's
+denormalize and clip run in float32. Training runs float32 only.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -48,9 +58,11 @@ class SlimConv(nn.Module):
     BN_EPS = 1e-5
 
     def __init__(self, cin: int, features: int, kernel: int, stride: int = 1,
-                 act: bool = True, transpose: bool = False):
+                 act: bool = True, transpose: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stride, self.act, self.transpose = stride, act, transpose
+        self.dtype = dtype
         shape = ((cin, features, kernel, kernel) if transpose
                  else (features, cin, kernel, kernel))
         self.weight = nn.Parameter(torch.zeros(shape))
@@ -60,10 +72,15 @@ class SlimConv(nn.Module):
         self.register_buffer('bn_var', torch.ones(features))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        dt = self.dtype
+        if train and dt != torch.float32:
+            raise ValueError(f'train mode runs float32 towers only, not {dt}')
+        w = self.weight.to(dt)
         if self.transpose:
-            y = tf_compat.conv2d_transpose_same_nchw(x, self.weight, self.stride)
+            y = tf_compat.conv2d_transpose_same_nchw(x.to(dt), w, self.stride)
         else:
-            y = tf_compat.conv2d_same_nchw(x, self.weight, self.stride)
+            y = tf_compat.conv2d_same_nchw(x.to(dt), w, self.stride)
+        y = y.float()
         if train:
             mean = y.mean((0, 2, 3))
             var = torch.clamp(torch.square(y).mean((0, 2, 3)) - torch.square(mean), min=0.0)
@@ -74,7 +91,8 @@ class SlimConv(nn.Module):
         else:
             mean, var = self.bn_mean, self.bn_var
         mul = torch.rsqrt(var + self.BN_EPS) * self.bn_scale
-        y = (y - mean[:, None, None]) * mul[:, None, None] + self.bn_bias[:, None, None]
+        y = ((y - mean[:, None, None]) * mul[:, None, None]
+             + self.bn_bias[:, None, None]).to(dt)
         return torch.relu(y) if self.act else y
 
 
@@ -82,29 +100,30 @@ class ResidualBlock(nn.Module):
     """Two 3x3 convs (BN after each, ReLU between) + identity skip;
     act=False drops the ReLU of both (ref autoencoder.py:274-287)."""
 
-    def __init__(self, features: int, act: bool = True):
+    def __init__(self, features: int, act: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = SlimConv(features, features, 3, act=act)
-        self.conv2 = SlimConv(features, features, 3, act=False)
+        self.conv1 = SlimConv(features, features, 3, act=act, dtype=dtype)
+        self.conv2 = SlimConv(features, features, 3, act=False, dtype=dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return self.conv2(self.conv1(x, train), train) + x
+        y = self.conv2(self.conv1(x, train), train)
+        return y + x.to(y.dtype)
 
 
 class Encoder(nn.Module):
-    def __init__(self, config):
+    def __init__(self, config, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
         n = ARCH_PARAM_N
         self.centers = nn.Parameter(torch.zeros(config.num_centers))
-        self.h1 = SlimConv(3, n // 2, 5, stride=2)
-        self.h2 = SlimConv(n // 2, n, 5, stride=2)
+        self.h1 = SlimConv(3, n // 2, 5, stride=2, dtype=dtype)
+        self.h2 = SlimConv(n // 2, n, 5, stride=2, dtype=dtype)
         for b in range(config.arch_param_B):
             for i in range(3):
-                setattr(self, f'res_block_enc_{b}_{i + 1}', ResidualBlock(n))
-        self.res_block_enc_final = ResidualBlock(n, act=False)
+                setattr(self, f'res_block_enc_{b}_{i + 1}', ResidualBlock(n, dtype=dtype))
+        self.res_block_enc_final = ResidualBlock(n, act=False, dtype=dtype)
         num_out = config.num_chan_bn + (1 if config.heatmap else 0)
-        self.to_bn = SlimConv(n, num_out, 5, stride=2, act=False)
+        self.to_bn = SlimConv(n, num_out, 5, stride=2, act=False, dtype=dtype)
 
     def forward(self, x_nhwc: torch.Tensor, train: bool = False) -> EncoderOutput:
         cfg = self.config
@@ -117,7 +136,7 @@ class Encoder(nn.Module):
                 net = getattr(self, f'res_block_enc_{b}_{i + 1}')(net, train)
             net = net + residual_input_b
         net = self.res_block_enc_final(net, train) + residual_input_0
-        net = self.to_bn(net, train).permute(0, 2, 3, 1)
+        net = self.to_bn(net, train).permute(0, 2, 3, 1).float()
         if cfg.heatmap:
             heatmap = get_heatmap3d(net)
             net = heatmap * net[..., 1:]
@@ -128,17 +147,18 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, config):
+    def __init__(self, config, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
         n = ARCH_PARAM_N
-        self.from_bn = SlimConv(config.num_chan_bn, n, 3, stride=2, transpose=True)
+        self.from_bn = SlimConv(config.num_chan_bn, n, 3, stride=2, transpose=True,
+                                dtype=dtype)
         for b in range(config.arch_param_B):
             for i in range(3):
-                setattr(self, f'res_block_dec_{b}_{i + 1}', ResidualBlock(n))
-        self.dec_after_res = ResidualBlock(n, act=False)
-        self.h12 = SlimConv(n, n // 2, 5, stride=2, transpose=True)
-        self.h13 = SlimConv(n // 2, 3, 5, stride=2, act=False, transpose=True)
+                setattr(self, f'res_block_dec_{b}_{i + 1}', ResidualBlock(n, dtype=dtype))
+        self.dec_after_res = ResidualBlock(n, act=False, dtype=dtype)
+        self.h12 = SlimConv(n, n // 2, 5, stride=2, transpose=True, dtype=dtype)
+        self.h13 = SlimConv(n // 2, 3, 5, stride=2, act=False, transpose=True, dtype=dtype)
 
     def forward(self, q_nhwc: torch.Tensor, train: bool = False) -> torch.Tensor:
         cfg = self.config
@@ -150,7 +170,7 @@ class Decoder(nn.Module):
                 net = getattr(self, f'res_block_dec_{b}_{i + 1}')(net, train)
             net = net + residual_input_b
         net = self.dec_after_res(net, train) + residual_input_0
-        net = self.h13(self.h12(net, train), train).permute(0, 2, 3, 1)
+        net = self.h13(self.h12(net, train), train).permute(0, 2, 3, 1).float()
         return torch.clamp(denormalize(net, cfg.normalization), 0.0, 255.0)
 
 
@@ -159,13 +179,14 @@ class CVPRAutoencoder(nn.Module):
     entry (differentiable; decodes qbar when training, qhard otherwise);
     ``encode``/``decode`` are the codec path's entries: running statistics,
     no autograd graph. Its parameters live on ``device`` (raises for 'cuda'
-    with no card)."""
+    with no card) in float32; ``dtype`` is the towers' compute dtype
+    (torch.bfloat16 for the serving path; training needs float32)."""
 
-    def __init__(self, config, device='cuda'):
+    def __init__(self, config, device='cuda', dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
-        self.encoder = Encoder(config)
-        self.decoder = Decoder(config)
+        self.encoder = Encoder(config, dtype)
+        self.decoder = Decoder(config, dtype)
         self.to(resolve_device(device))
 
     def forward(self, x_nhwc: torch.Tensor, train: bool):
@@ -211,11 +232,20 @@ def get_network_cls(config):
     return {'CVPR': CVPRAutoencoder}[config.arch]
 
 
+@functools.lru_cache(maxsize=8)
+def _norm_stats(device: torch.device, dtype: torch.dtype):
+    """(mean, std) on ``device``, uploaded once: a blocking upload in every
+    encode and decode would make the host wait for the card."""
+    return (torch.from_numpy(_NORM_MEAN).to(device, dtype),
+            torch.from_numpy(_NORM_STD).to(device, dtype))
+
+
 def normalize(x: torch.Tensor, style: str) -> torch.Tensor:
     if style == 'OFF':
         return x
     if style == 'FIXED':
-        return (x - x.new_tensor(_NORM_MEAN)) / x.new_tensor(_NORM_STD)
+        mean, std = _norm_stats(x.device, x.dtype)
+        return (x - mean) / std
     raise ValueError(f'Invalid normalization style {style}')
 
 
@@ -223,7 +253,8 @@ def denormalize(x: torch.Tensor, style: str) -> torch.Tensor:
     if style == 'OFF':
         return x
     if style == 'FIXED':
-        return x * x.new_tensor(_NORM_STD) + x.new_tensor(_NORM_MEAN)
+        mean, std = _norm_stats(x.device, x.dtype)
+        return x * std + mean
     raise ValueError(f'Invalid normalization style {style}')
 
 

@@ -159,9 +159,8 @@ def test_cluster_decode_any_batch(cuda_device, b):
     pb = cuda_codec.parse_batch([r.bitstream for r in res],
                                 lambda s: ck.build_schedule(s).stream_cap,
                                 lambda s: ck.lane_totals(ck.build_schedule(s)))
-    args = dict(streams=torch.from_numpy(pb.words).to(cuda_device),
-                init_states=torch.from_numpy(pb.states).to(cuda_device),
-                thresh=torch.from_numpy(pb.thresh).to(cuda_device))
+    args = dict(zip(('streams', 'init_states', 'thresh'), cuda_codec.upload_parsed(
+        pb, ck.build_schedule(shape).stream_cap, cuda_device)))
     for cluster in (1, 2, 3, 6, 8):
         out = ck.wavefront_forward(ck.MODE_DECODE, w, shape, cluster=cluster, **args)
         assert torch.equal(out, syms), cluster
@@ -249,10 +248,9 @@ def test_k3_weight_placement_keeps_the_bits(cuda_device, force):
     pb = cuda_codec.parse_batch([r.bitstream for r in res],
                                 lambda s: ck.build_schedule(s).stream_cap,
                                 lambda s: ck.lane_totals(ck.build_schedule(s)))
-    out = ck.wavefront_forward(ck.MODE_DECODE, w, shape, force=force,
-                               streams=torch.from_numpy(pb.words).to(cuda_device),
-                               init_states=torch.from_numpy(pb.states).to(cuda_device),
-                               thresh=torch.from_numpy(pb.thresh).to(cuda_device))
+    streams, states, thresh = cuda_codec.upload_parsed(pb, sched.stream_cap, cuda_device)
+    out = ck.wavefront_forward(ck.MODE_DECODE, w, shape, force=force, streams=streams,
+                               init_states=states, thresh=thresh)
     assert torch.equal(out, syms)
 
 
@@ -707,3 +705,41 @@ def test_full_model_step_kernel_vs_plain_gradients(cuda_device, monkeypatch):
         scale = g_plain[n].abs().max().item()
         # the kernel's roundings (expf, FMA contraction, its summation tree)
         assert (g_kernel[n] - g_plain[n]).abs().max().item() <= 1e-3 * scale + 1e-12, n
+
+
+# ---------------------------------------------------------------------------
+# The codec's submit / finish split: no wait for the card in a submit
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('K', [3, 5])
+def test_submit_does_not_wait_for_the_card(cuda_device, K):
+    """Encode and decode submits, with symbols on the card and as numpy and
+    with host centers, run under torch.cuda.set_sync_debug_mode('error'):
+    none of their calls synchronizes with the card. Two handles outstanding
+    finish to encode_batch's streams; a bad symbol on the card raises at
+    finish; device_out=False gives the host np.int32 symbols."""
+    shape = (6, 10, 12) if K == 3 else (3, 12, 20)
+    pc, cfg = _pc(cuda_device, kf=8, seed=20) if K == 3 else _planar_pc(cuda_device, seed=20)
+    lc = codec.LatentCodec(pc, cfg, device=cuda_device)
+    centers = np.linspace(-2, 2, 6).astype(np.float32)
+    syms = torch.from_numpy(np.random.RandomState(20).randint(0, 6, (4,) + shape)).int()
+    syms_dev = syms.to(cuda_device)
+    ref = [r.bitstream for r in lc.encode_batch(syms_dev, centers)]   # builds the caches
+    lc.decode_batch(ref, centers)
+    bad = syms_dev.clone()
+    bad[0, 0, 0, 0] = 6
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        h1 = lc.encode_batch_submit(syms_dev[:2], centers)
+        h2 = lc.encode_batch_submit(syms[2:].numpy(), centers)
+        hb = lc.encode_batch_submit(bad, centers)
+        d1 = lc.decode_batch_submit(ref, centers)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert [r.bitstream for r in lc.encode_batch_finish(h1) + lc.encode_batch_finish(h2)] == ref
+    with pytest.raises(ValueError, match='must lie in'):
+        lc.encode_batch_finish(hb)
+    out = lc.decode_batch_finish(d1, device_out=False)
+    assert isinstance(out, np.ndarray) and out.dtype == np.int32
+    np.testing.assert_array_equal(out, syms.numpy())

@@ -86,6 +86,44 @@ def test_ae_encode_decode_matches_jax(trained):
     np.testing.assert_allclose(tdec.numpy(), np.asarray(jdec), rtol=0, atol=1e-2)
 
 
+def test_ae_bf16_towers_match_jax_bf16(trained):
+    """bf16 towers (parameters f32, loaded by the unchanged load_trained)
+    against the JAX package's CVPRAutoencoder(dtype=bfloat16) on the same
+    images. Measured on the CPU (oneDNN against XLA, which round a bf16
+    conv's f32 sum at different points): 9 of 6144 symbols differ from the
+    JAX bf16 ones (bound 1%); 99.87% equal the port's f32 symbols (bound
+    99%; the reference measured 99.89% on the TPU); decode of the same qhard
+    within 1.084 of the JAX bf16 decode on the 0-255 scale (max; bound
+    1.25), 0.089 on average (bound 0.15)."""
+    tree, ae32, _ = trained
+    cfg32 = ae32.config
+    ae16 = tae.CVPRAutoencoder(cfg32, device='cpu', dtype=torch.bfloat16)
+    pc = tpc.ProbClassifier(tconfig.parse_spec('cvpr/res_shallow', 'pc')[0],
+                            cfg32.num_centers, device='cpu')
+    ae16, _ = tweights.load_trained(ASSET, ae16, pc, device='cpu')
+    sd32 = ae32.state_dict()
+    for k, v in ae16.state_dict().items():
+        assert v.dtype == torch.float32 and torch.equal(v, sd32[k]), k
+    cfg, _ = jconfig.parse_spec('cvpr/low', 'ae')
+    jmodel = jae.CVPRAutoencoder(cfg, dtype=jnp.bfloat16)
+    jvars = {'params': tree['params']['ae'], 'batch_stats': tree['batch_stats']}
+    x = _images()
+    jenc = jax.jit(lambda v, x: jmodel.apply(v, x, False, method='encode'))(jvars, x)
+    jdec = jax.jit(lambda v, q: jmodel.apply(v, q, False, method='decode'))(jvars, jenc.qhard)
+    t16 = ae16.encode(torch.from_numpy(x))
+    assert t16.z.dtype == torch.float32 and t16.qhard.dtype == torch.float32
+    sym16, sym_j = t16.symbols.numpy(), np.asarray(jenc.symbols)
+    assert int((sym16 != sym_j).sum()) <= 0.01 * sym_j.size
+    agree = float((sym16 == ae32.encode(torch.from_numpy(x)).symbols.numpy()).mean())
+    assert agree >= 0.99, agree
+    tdec = ae16.decode(torch.from_numpy(np.array(jenc.qhard)))
+    assert tdec.dtype == torch.float32
+    diff = np.abs(tdec.numpy() - np.asarray(jdec))
+    assert diff.max() <= 1.25 and diff.mean() <= 0.15, (diff.max(), diff.mean())
+    with pytest.raises(ValueError, match='float32'):
+        ae16(torch.from_numpy(x), True)
+
+
 def _pc_pair(kf=8, L=6, seed=0, shape_nhwc=(2, 5, 6, 4)):
     cfg, _ = jconfig.parse_spec('cvpr/res_shallow', 'pc')
     cfg = cfg.replace(arch_param__k=kf)
