@@ -61,8 +61,33 @@ Phases, one line each:
      backward with kernel 7 against one with its plain version, 20 train steps on one
      batch (twice from the same seed), an eval step, per-step times, and
      train_loop.train with a test interval, a save and a restore;
-  7. the kernels line: each kernel's launches in its main-path phase (4, 5
-     or 6), its error against the plain version, times and bound. Kernel 1
+  7. the validation path (eval/validate.py, val_torch.py) at full width:
+     the trained ae cvpr/low + pc cvpr/res_shallow saved as checkpoint 9000
+     through the Saver and the tree of train_loop.train, in a log dir named
+     for the configs under build/chip_smoke_val; kernel 1 against its plain
+     version on the eval z (symbols and all); on the symbols fetch_many
+     gives the first bucket, kernel 2's encode tables and kernel 3's output
+     at B=8 against their plain versions (byte for byte for kernel 3);
+     validate() on the 24 images of work_rd/natkodak24 (512x768, eval
+     batch 8: three full buckets) without and with real_bpp and save_ours:
+     24 measures rows equal in both sweeps and the summary, every bucket's
+     batched round trip CRC-verified bit-exact (so the scan decode at B=8),
+     the real / theoretical / loss bpp and the real/theory overhead (at
+     most 1%), 24 PNGs of 512x768, images a second by CUDA events around
+     fetch_many and the codec calls; one fetch_many of the first bucket
+     under torch.profiler, its device time split by validate's val/<step>
+     ranges; val_torch.py --how_many 5 (one bucket of 5 padded to 8) gives
+     the full sweep's first five rows exactly (pad_batch_to); a K=5 run
+     (trained AE, seeded pc base, --how_many 4 --real_bpp) launches kernels
+     5 and 6 and round-trips, and on its 4 images kernel 5's encode tables
+     and kernel 6's output are held against their plain versions. Phase
+     6c's own run (image dumps at its
+     test step, d_BPG NaN without BPG curves, its registry entry) is
+     validated once by val_torch.py on 8 images, its last checkpoint;
+  8. the kernels line: each kernel's launches in its main-path phase (4, 5
+     or 6), its error against the plain version, times and bound; the
+     kernels of phase 7's real-bpp runs also give ``launches_validation``
+     (phase 7's count, K=3 sweep and K=5 run). Kernel 1
      has two rows: ``quantize`` (codec shape, phase 4's launches) and
      ``quantize_train`` (training shape, phase 6b's launches). Kernels 1
      and 7 are short beside the host work of a wrapper call, so their rows
@@ -74,8 +99,11 @@ The last line is {"ok": true, "device": {...}}. Any failed check raises,
 which exits non-zero before that line is printed.
 """
 
+import contextlib
+import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -95,6 +123,11 @@ ASSET = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'assets',
                      'demo_trained_low_9000.npz')
 BATCH, IMG_H, IMG_W = 16, 512, 768
 TRAIN_BATCH, TRAIN_CROP, TRAIN_STEPS = 30, 160, 20
+HERE = os.path.dirname(os.path.abspath(__file__))
+NATKODAK = os.path.join(HERE, 'work_rd', 'natkodak24')   # 24 PNGs of 512x768
+VAL_ROOT = os.path.join(HERE, 'build', 'chip_smoke_val')  # phase 7's log root
+VAL_BATCH, VAL_IMAGES = 8, 24
+OVERHEAD_LIMIT_PCT = 1.0    # real/theory bits at Kodak size, trained model (PERF.md)
 
 
 def natural_images(rng, b, h, w):
@@ -615,6 +648,8 @@ def training_path(dev, rows):
     from imgcomp_cvpr_tpu_torch.training import trainer as trainer_lib
     from imgcomp_cvpr_tpu_torch.utils import config as config_lib
     from imgcomp_cvpr_tpu_torch.utils import logdir as logdir_lib
+    from imgcomp_cvpr_tpu_torch.utils import registry as registry_lib
+    import val_torch
 
     ae_config, _ = config_lib.parse_spec('cvpr/low', 'ae')
     pc_config, _ = config_lib.parse_spec('cvpr/res_shallow', 'pc')
@@ -805,18 +840,26 @@ def training_path(dev, rows):
                                       log_interval_save=20, max_steps=30)
         log_dir = train_loop.train('cvpr/low', 'cvpr/res_shallow', 'synthetic:64',
                                    'synthetic:8', log_dir_root=root, flags=flags, seed=0,
-                                   device=dev)
+                                   description='chip_smoke phase 6c', device=dev)
         ckpt_dir = logdir_lib.ckpt_dir_for_log_dir(log_dir)
         saved, itr = checkpoint_lib.Saver(ckpt_dir).restore()
         events = {name: [json.loads(line) for line in
                          open(os.path.join(log_dir, f'events_{name}.jsonl'))]
                   for name in ('train', 'test')}
+        # d_BPG is NaN: there are no BPG curves ('testset', the default)
         if (itr != 30 or saved['step'] != 30
                 or [e['step'] for e in events['train']] != [10, 20, 30]
                 or [e['step'] for e in events['test']] != [20]
+                or not np.isnan(events['test'][0].pop('d_BPG'))
                 or not all(np.isfinite(v) for e in events['train'] + events['test']
                            for v in e.values())):
             raise AssertionError(f'6c: itr {itr}, events {events}')
+        dumps = sorted(os.listdir(os.path.join(log_dir, 'imgs')))
+        if dumps != [f'00000020_{i}_{k}.png' for i in range(3) for k in ('hm', 'in', 'out')]:
+            raise AssertionError(f'6c: image dumps {dumps}')
+        runs = registry_lib.read_runs(root)
+        if [r['description'] for r in runs] != ['chip_smoke phase 6c']:
+            raise AssertionError(f'6c: registry {runs}')
         # Restore into a differently seeded state: it continues at 30 with
         # the saved parameters, statistics and optimizer moments.
         fresh = trainer_lib.Trainer(ae_config, pc_config, num_train_images=64,
@@ -839,6 +882,17 @@ def training_path(dev, rows):
         final, itr2 = checkpoint_lib.Saver(ckpt_dir).restore()
         if log_dir2 != log_dir or steps != [10, 20, 30, 32, 34] or itr2 != 34:
             raise AssertionError(f'6c: continued run: steps {steps}, ckpt {itr2}')
+        # what training wrote, validation reads: the last checkpoint, 8 images
+        job = logdir_lib.log_date_from_log_dir(log_dir)
+        val_log = os.path.join(root, 'validate.log')
+        with open(val_log, 'w') as f, contextlib.redirect_stdout(f):
+            val_torch.main([root, job, NATKODAK, '--how_many', '8', '-s', '-1',
+                           '--device', dev.type])
+        out_dir = os.path.join(root, f'{job} natkodak24')
+        rows = open(os.path.join(out_dir, 'measures.csv')).read().splitlines()[1:]
+        summary = json.load(open(os.path.join(out_dir, 'summary_34.json')))
+        if len(rows) != 8 or not np.isfinite([summary[k] for k in ('bpp', 'ms-ssim', 'psnr')]).all():
+            raise AssertionError(f'6c: validation of the trained run: {rows}, {summary}')
         print(f'[6c train loop] train_loop.train cvpr/low + cvpr/res_shallow on '
               f'synthetic:64 / synthetic:8: 30 steps, train logs at 10/20/30 (img_per_sec '
               f"{events['train'][-1]['img_per_sec']:.2f} with the host pipeline, total_loss "
@@ -846,8 +900,282 @@ def training_path(dev, rows):
               f' on changing batches), test at 20 (bpp '
               f"{events['test'][0]['bpp']:.5f}), checkpoints at 20 and 30; restored at 30 "
               f'with {len(tensors)} tensors equal to the checkpoint, continued to 34 in the '
-              f'same log dir', flush=True)
+              f'same log dir; test images dumped at 20 ({len(dumps)} PNGs), d_BPG NaN (no BPG '
+              f'curves), the description in the run registry; val_torch.py on the run\'s '
+              f'last checkpoint (34), 8 natkodak24 images: bpp {summary["bpp"]:.5f} ms-ssim '
+              f'{summary["ms-ssim"]:.5f} psnr {summary["psnr"]:.3f}', flush=True)
     return launches
+
+
+def validation_path(dev):
+    """Phase 7: the validation path at full width. The trained ae cvpr/low +
+    pc cvpr/res_shallow, saved as a checkpoint through the Saver and the tree
+    layout that train_loop.train writes, validated on the 24 natkodak24
+    images (512x768, eval batch 8: three full buckets) without and with
+    real_bpp; the pad_batch_to check (--how_many 5: one bucket of 5 padded to
+    8); a short K != 3 run (seeded pc base) through kernels 5 and 6. Returns
+    the launch counts of the real-bpp sweeps (K=3 and K=5 merged by name)."""
+    import torch
+    from PIL import Image
+    from imgcomp_cvpr_tpu_torch import weights as weights_lib
+    from imgcomp_cvpr_tpu_torch.coding import codec as codec_lib
+    from imgcomp_cvpr_tpu_torch.coding import cuda_codec, planar_codec
+    from imgcomp_cvpr_tpu_torch.coding import cuda_kernel as ck
+    from imgcomp_cvpr_tpu_torch.coding import planar_kernel as plk
+    from imgcomp_cvpr_tpu_torch.data import val_images
+    from imgcomp_cvpr_tpu_torch.data.images_iterator import ImagesIterator
+    from imgcomp_cvpr_tpu_torch.eval import validate as validate_lib
+    from imgcomp_cvpr_tpu_torch.eval.val_files import ValidationDirs
+    from imgcomp_cvpr_tpu_torch.ops.kernels import build, quantize as qk
+    from imgcomp_cvpr_tpu_torch.training import checkpoint as checkpoint_lib
+    from imgcomp_cvpr_tpu_torch.training import trainer as trainer_lib
+    from imgcomp_cvpr_tpu_torch.utils import config as config_lib
+    from imgcomp_cvpr_tpu_torch.utils import logdir as logdir_lib
+    import val_torch
+
+    t_phase = time.time()
+    shutil.rmtree(VAL_ROOT, ignore_errors=True)
+    os.makedirs(VAL_ROOT)
+    log = open(os.path.join(VAL_ROOT, 'validate.log'), 'w')   # validate's own lines
+
+    def checkpoint(ae_spec, pc_spec, load_pc):
+        """A log dir named for the configs, holding the trained AE (and the
+        trained context model, or a seeded one) as checkpoint 9000."""
+        ae_config, ae_rel = config_lib.parse_spec(ae_spec, 'ae')
+        pc_config, pc_rel = config_lib.parse_spec(pc_spec, 'pc')
+        state = trainer_lib.Trainer(ae_config, pc_config, device=dev).init_state(0)
+        tree = weights_lib.load_npz(ASSET)
+        state.ae.load_state_dict(weights_lib.ae_state_dict(
+            tree['params']['ae'], tree['batch_stats'], state.ae))
+        if load_pc:
+            state.pc.load_state_dict(weights_lib.pc_state_dict(tree['params']['pc']))
+        log_dir = logdir_lib.create_unique_log_dir([ae_rel, pc_rel], VAL_ROOT)
+        checkpoint_lib.Saver(logdir_lib.ckpt_dir_for_log_dir(log_dir)).save(
+            state.state_dict(), 9000)
+        return log_dir, state
+
+    log_dir, state = checkpoint('cvpr/low', 'cvpr/res_shallow', load_pc=True)
+    ckpt_dir, job = logdir_lib.ckpt_dir_for_log_dir(log_dir), logdir_lib.log_date_from_log_dir(log_dir)
+    paths, name = val_images.get_image_paths(NATKODAK)
+    if len(paths) != VAL_IMAGES or name != 'natkodak24':
+        raise AssertionError(f'7: {len(paths)} images, dataset name {name}')
+    images = ImagesIterator(paths, name)
+
+    # Kernel 1 on the eval z of the first bucket.
+    x = torch.from_numpy(np.stack([a for _, a in itertools.islice(images.iter_imgs(pad=8),
+                                                                  VAL_BATCH)])).to(dev)
+    if tuple(x.shape) != (VAL_BATCH, IMG_H, IMG_W, 3):
+        raise AssertionError(f'7: first bucket {tuple(x.shape)}')
+    with torch.no_grad():
+        enc = state.ae.encode(x.to(torch.float32))
+    z, centers = enc.z.contiguous(), state.ae.encoder.centers.detach()
+    qs_k, qh_k, sym_k = qk.quantize_fwd(z, centers)
+    qs_p, qh_p, sym_p = qk.quantize_plain(z, centers)
+    q_err = (qs_k - qs_p).abs().max().item()
+    if not (torch.equal(sym_k, sym_p) and torch.equal(qh_k, qh_p)
+            and torch.equal(sym_k, enc.symbols)) or q_err > 1e-5:
+        raise AssertionError(f'7: kernel 1 on the eval z differs from its plain version '
+                             f'(qsoft max abs err {q_err})')
+    print(f'[7 quantize on the eval z] z {tuple(z.shape)} of the first bucket (8 natkodak24 '
+          f'images): symbols and qhard equal to the plain version and to the encoder\'s own, '
+          f'qsoft max abs err {q_err:.3g} (tol 1e-5)', flush=True)
+
+    em = validate_lib.build_eval_model_from_log_dir(log_dir, device=dev)
+    em.set_params(state.state_dict()['model'])
+    imgs8 = list(x.cpu().numpy())
+    first = em.fetch_many(imgs8, pad_batch_to=VAL_BATCH)    # warm-up, untimed
+
+    # Kernels 2 and 3 at the sweep's B=8, on the symbols validate hands the
+    # codec for the first bucket: kernel 2's encode tables against its plain
+    # version, kernel 3's words, counts, states and tail lengths against its
+    # plain version byte for byte. The sweep's bit-exact round trip then
+    # holds the scan decode at B=8 (its cluster size is chosen by B).
+    syms8 = torch.from_numpy(np.stack([o['sym'] for o in first])).to(dev)
+    syms8 = syms8.permute(0, 3, 1, 2).contiguous()              # (B, C, H, W)
+    shape = tuple(syms8.shape[1:])
+    n = int(np.prod(shape))
+    syms_flat = syms8.reshape(VAL_BATCH, n).int().contiguous()
+    with torch.no_grad():
+        fw = cuda_codec.fold_weights(em.pc, em.ae.encoder.centers)
+        f_k, s_k = ck.wavefront_forward(ck.MODE_ENCODE, fw, shape, true_syms=syms_flat)
+        enc_plain_ms, (f_p, s_p) = host_ms(lambda: ck.wavefront_encode_plain(
+            fw, shape, syms_flat))
+    sched8 = ck.build_schedule(shape)
+    act = torch.from_numpy(sched8.idx_cm < n).to(dev)
+    flips = int((((f_k != f_p) | (s_k != s_p)) & act).sum().item())
+    entries = int(act.sum().item()) * VAL_BATCH
+    if flips > 1e-3 * entries:
+        raise AssertionError(f'7: kernel 2 encode at B={VAL_BATCH}: {flips} flips > 0.1% of '
+                             f'{entries}')
+    rev_k = ck.rans_reverse(f_k, s_k, shape, 1)
+    rev_plain_ms, rev_p = host_ms(lambda: ck.rans_reverse_plain(f_k, s_k, shape, 1))
+    if not same_reverse(rev_k, rev_p, [(i, i) for i in range(VAL_BATCH)]):
+        raise AssertionError(f'7: kernel 3 at B={VAL_BATCH} differs from its plain version')
+    print(f'[7 kernels 2 and 3 at B={VAL_BATCH}] the first bucket\'s symbols {tuple(syms8.shape)}: '
+          f'kernel 2\'s encode tables vs its plain version ({enc_plain_ms / 1e3:.1f} s): '
+          f'{flips} boundary flips of {entries} active entries (tol 0.1%); kernel 3 byte-equal '
+          f'to its plain version ({rev_plain_ms / 1e3:.1f} s) on all {VAL_BATCH} images '
+          f'({int(rev_k[1].sum().item())} words); the scan at B={VAL_BATCH} takes clusters of '
+          f'{ck.scan_cluster(fw.w2.shape[-1], fw.w4.shape[-1], sched8.CQ, sched8.T, VAL_BATCH)} '
+          f'blocks, held by the sweep\'s round trips', flush=True)
+    lc = codec_lib.LatentCodec(em.pc, em.pc_config, device=dev)
+    ms = {'fetch': [], 'codec': []}
+    bits = []
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*args, **kwargs)
+            ev[1].record()
+            ms[key].append(ev)
+            if fn.__name__ == 'encode_batch':
+                bits.extend((r.num_bits, r.theoretical_bits) for r in out)
+            return out
+        return run
+
+    em.fetch_many = timed(em.fetch_many, 'fetch')
+    lc.encode_batch = timed(lc.encode_batch, 'codec')
+    lc.decode_batch = timed(lc.decode_batch, 'codec')
+
+    def sweep(real_bpp):
+        for v in ms.values():
+            v.clear()
+        bits.clear()
+        flags = validate_lib.OutputFlags(save_ours=real_bpp, ckpt_step=-1, real_bpp=real_bpp,
+                                         eval_batch=VAL_BATCH)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        wall = time.time()
+        with contextlib.redirect_stdout(log):
+            vd = ValidationDirs(ckpt_dir, VAL_ROOT, name, reset=True)
+            validate_lib.validate(vd, images, flags, eval_model=em, codec=lc)
+        torch.cuda.synchronize()
+        wall = time.time() - wall
+        launches = dict(build.LAUNCHES)
+        t = {k: sum(e[0].elapsed_time(e[1]) for e in v) for k, v in ms.items()}
+        rows = open(os.path.join(vd.out_dir, 'measures.csv')).read().splitlines()
+        summary = json.load(open(os.path.join(vd.out_dir, 'summary_9000.json')))
+        if len(rows) != VAL_IMAGES + 1 or len(ms['fetch']) != VAL_IMAGES // VAL_BATCH:
+            raise AssertionError(f'7: {len(rows) - 1} measures rows, '
+                                 f'{len(ms["fetch"])} fetch_many calls')
+        return vd, rows, summary, t, wall, launches
+
+    _, rows_a, sum_a, t_a, wall_a, _ = sweep(real_bpp=False)
+    vd, rows, summary, t_b, wall_b, launches = sweep(real_bpp=True)
+    if rows != rows_a:
+        raise AssertionError('7: the measures of the real-bpp sweep differ')
+    for k in ('quantize', 'wavefront_forward_encode', 'rans_reverse', 'wavefront_forward_decode'):
+        if launches[k] < VAL_IMAGES // VAL_BATCH:
+            raise AssertionError(f'7: {k} launched {launches[k]} times in the real-bpp sweep')
+    n_px = VAL_IMAGES * IMG_H * IMG_W
+    real, theory = (sum(b[i] for b in bits) / n_px for i in (0, 1))
+    overhead = 100 * (real / theory - 1)
+    if len(bits) != VAL_IMAGES or not overhead <= OVERHEAD_LIMIT_PCT:
+        raise AssertionError(f'7: {len(bits)} coded images, real/theory overhead {overhead}%')
+    saved = sorted(os.listdir(os.path.join(vd.out_dir, 'imgs')))
+    if saved != [os.path.basename(p) for p in paths]:
+        raise AssertionError(f'7: --save_ours wrote {saved}')
+    for f in saved:
+        with Image.open(os.path.join(vd.out_dir, 'imgs', f)) as im:
+            if im.size != (IMG_W, IMG_H):
+                raise AssertionError(f'7: saved {f} is {im.size}')
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f'[7 validation] trained ae cvpr/low + pc cvpr/res_shallow from checkpoint 9000 '
+          f'(train_loop\'s tree), {VAL_IMAGES} natkodak24 images {IMG_H}x{IMG_W}, eval batch '
+          f'{VAL_BATCH}: bpp {summary["bpp"]:.5f}, ms-ssim {summary["ms-ssim"]:.5f}, psnr '
+          f'{summary["psnr"]:.3f} dB; real / theoretical / loss bpp {real:.5f} / {theory:.5f} / '
+          f'{summary["bpp"]:.5f}, real/theory overhead {overhead:.4f}% (limit '
+          f'{OVERHEAD_LIMIT_PCT}%); every '
+          f'bucket\'s round trip CRC-verified bit-exact; launches in the real-bpp sweep: '
+          f'{ {k: v for k, v in launches.items() if v} }; {VAL_IMAGES} PNGs of {IMG_W}x{IMG_H} '
+          f'saved', flush=True)
+    print(f'[7 validation speed] {smi}: fetch_many (AE encode + decode, bitcost, metrics, '
+          f'to host; CUDA events) {t_a["fetch"]:.1f} ms for {VAL_IMAGES} images = '
+          f'{VAL_IMAGES / t_a["fetch"] * 1e3:.3f} img/s without real_bpp (sweep wall '
+          f'{wall_a:.2f} s); with real_bpp fetch_many {t_b["fetch"]:.1f} ms + codec '
+          f'(encode_batch + decode_batch, 3 buckets) {t_b["codec"]:.1f} ms = '
+          f'{VAL_IMAGES / (t_b["fetch"] + t_b["codec"]) * 1e3:.3f} img/s (sweep wall '
+          f'{wall_b:.2f} s, saving the PNGs included)', flush=True)
+
+    # Where a bucket's fetch_many goes: one call on the first bucket under
+    # torch.profiler, its device time by the val/<step> ranges of
+    # eval/validate.py (CUPTI kernel records under each range).
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    ms['fetch'].clear()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        em.fetch_many(imgs8, pad_batch_to=VAL_BATCH)
+        torch.cuda.synchronize()
+    traced_ms = ms['fetch'][0][0].elapsed_time(ms['fetch'][0][1])
+    split = {}
+    for e in prof.events():
+        if e.name.startswith('val/') and e.device_type == DeviceType.CPU:
+            split[e.name[4:]] = split.get(e.name[4:], 0.0) + e.device_time_total / 1e3
+    split_txt = ({k: round(v, 3) for k, v in split.items()} if sum(split.values()) > 0
+                 else 'not recorded (the profiler saw no device time)')
+    print(f'[7 fetch_many split] one bucket of {VAL_BATCH} at {IMG_H}x{IMG_W}: device ms by '
+          f'step (torch.profiler, val/<step> ranges) {split_txt}, sum '
+          f'{sum(split.values()):.1f}; the traced call {traced_ms:.1f} ms (CUDA events, '
+          f'profiler on)', flush=True)
+
+    # pad_batch_to: 5 images, one bucket padded to 8, through val_torch.py
+    with contextlib.redirect_stdout(log):
+        val_torch.main([VAL_ROOT, job, NATKODAK, '--how_many', '5', '--reset', '-s', '-1',
+                        '--device', dev.type])
+    rows5 = open(os.path.join(vd.out_dir, 'measures.csv')).read().splitlines()
+    if rows5 != rows[:6]:
+        raise AssertionError(f'7: --how_many 5 measures {rows5[1:]} differ from the full '
+                             f'sweep\'s first five {rows[1:6]}')
+
+    # K != 3: the trained AE with a seeded pc base, 4 images, real bpp.
+    log5, state5 = checkpoint('cvpr/low', 'base', load_pc=False)
+    job5 = logdir_lib.log_date_from_log_dir(log5)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    with contextlib.redirect_stdout(log):
+        val_torch.main([VAL_ROOT, job5, NATKODAK, '--how_many', '4', '--real_bpp', '-s', '-1',
+                        '--device', dev.type])
+    torch.cuda.synchronize()
+    launches5 = dict(build.LAUNCHES)
+    for k in ('quantize', 'plane_forward_encode', 'plane_reverse', 'plane_forward_decode'):
+        if launches5[k] < 1:
+            raise AssertionError(f'7: {k} was not launched in the K=5 real-bpp run')
+    summary5 = json.load(open(os.path.join(VAL_ROOT, f'{job5} natkodak24', 'summary_9000.json')))
+
+    # Kernels 5 and 6 on the K=5 run's 4 images (the first bucket's first
+    # four: one shape, so the same symbols) against their plain versions.
+    pc5_config, _ = config_lib.parse_spec('base', 'pc')
+    coder = planar_codec.PlanarCoder(state5.pc, pc5_config, device=dev)
+    syms4 = syms8[:4].int().contiguous()
+    with torch.no_grad():
+        sched5, fold5 = coder._prepare(shape, em.ae.encoder.centers)
+        f5_k, s5_k = coder.encode_tables(syms4, fold5)
+        plain5_ms, (f5_p, s5_p) = host_ms(lambda: coder.encode_tables(syms4, fold5, plain=True))
+    flips5 = int(((f5_k != f5_p) | (s5_k != s5_p)).sum().item())
+    entries5 = int((sched5.idx_cm < shape[1] * shape[2]).sum()) * 4 * shape[0]
+    if flips5 > 1e-3 * entries5:     # phase 3's tolerance for this comparison
+        raise AssertionError(f'7: kernel 5 encode at B=4: {flips5} flips > 0.1% of {entries5}')
+    rev5_k = plk.plane_reverse(f5_k, s5_k, shape, coder.K, 1)
+    rev5_ms, rev5_p = host_ms(lambda: plk.plane_reverse_plain(f5_k, s5_k, shape, coder.K, 1))
+    if not same_reverse(rev5_k, rev5_p, [(i, i) for i in range(4)]):
+        raise AssertionError('7: kernel 6 at B=4 differs from its plain version')
+    print(f'[7 validation, K=5] trained ae cvpr/low + seeded pc base (K=5), --how_many 4 '
+          f'--real_bpp through val_torch.py: round trips CRC-verified bit-exact; bpp '
+          f'{summary5["bpp"]:.5f} (a seeded context model: this bpp describes no trained '
+          f'codec), launches { {k: v for k, v in launches5.items() if v} }; on its 4 images '
+          f'kernel 5\'s encode tables vs its plain version ({plain5_ms / 1e3:.1f} s): {flips5} '
+          f'flips of {entries5} active entries (tol 0.1%), kernel 6 byte-equal to its plain '
+          f'version ({rev5_ms / 1e3:.1f} s); --how_many 5 '
+          f'(one bucket of 5 padded to 8): measures equal to the full sweep\'s first five, '
+          f'exactly', flush=True)
+    log.close()
+    print(f'[7 phase time] {time.time() - t_phase:.1f} s', flush=True)
+    merged = dict(launches)
+    merged.update({k: v for k, v in launches5.items() if k.startswith('plane')})
+    return merged
 
 
 def main_path(ae, codec, x, centers):
@@ -1457,6 +1785,9 @@ def main(argv):
 
     launches[6] = training_path(dev, rows)
 
+    # ---- phase 7: the validation path -------------------------------------
+    launches[7] = validation_path(dev)
+
     kernels = []
     for phase, name in ((4, 'quantize'), (6, 'quantize_train'), (6, 'quantize_bwd'),
                         (4, 'wavefront_forward_encode'),
@@ -1477,6 +1808,8 @@ def main(argv):
                             max_abs_err=r['max_abs_err'], ms=r['ms'],
                             plain_ms=r['plain_ms'], bound_ms=b_ms, bound_by=b_by,
                             library_ms=r['library_ms']))
+        if name in launches[7]:     # the validation path's own run (phase 7)
+            kernels[-1]['launches_validation'] = launches[7][name]
         if 'quantizer' in r:    # kernels 1 and 7: device time beside the host's
             q = r['quantizer']
             kernels[-1].update(device_ms=q['device_ms'], graph_ms=q['graph_ms'],

@@ -330,7 +330,7 @@ def _layer_step(src: torch.Tensor, taps: torch.Tensor, w: torch.Tensor,
     accumulated in the kernel's order: over (tap, input channel) one
     rounded multiply and one rounded add at a time, then the bias."""
     x = src[:, taps.long()]                                # (B, nc, ntaps, cin)
-    x = x.reshape(x.shape[0], x.shape[1], -1)
+    x = x.reshape(x.shape[0], x.shape[1], taps.shape[1] * src.shape[2])   # nc may be 0
     wf = w.reshape(-1, w.shape[-1])
     acc = torch.zeros(x.shape[0], x.shape[1], wf.shape[1], dtype=x.dtype,
                       device=x.device)

@@ -2,21 +2,25 @@
 imgcomp_cvpr_tpu/training/train_loop.py; ref: train.py:58-269).
 
 Wires configs -> log dir -> Trainer -> input pipelines -> the loop with
-periodic console/JSONL logging, checkpointing, and test-split evaluation.
-PyTorch enqueues a step's kernels without waiting for the device, so while
-step i runs the host fetches batch i + 1 and uploads it from pinned memory;
-the loop reads device values (a sync) only at the log intervals.
+periodic console/JSONL logging, checkpointing, and test-split evaluation
+with the distance-to-BPG monitor (``d_BPG``, NaN where no measured BPG curves
+exist) and input / output / heatmap PNGs of the test batch under
+``<logdir>/imgs``. A run with a ``description`` is recorded in the run
+registry (utils/registry.py). PyTorch enqueues a step's kernels without
+waiting for the device, so while step i runs the host fetches batch i + 1
+and uploads it from pinned memory; the loop reads device values (a sync)
+only at the log intervals.
 
-Not ported yet (ROADMAP Queue 1 #10): the run registry behind
-``description``, the distance-to-BPG monitor, the test-image dumps and the
-dispatch watchdog. ``steps_per_dispatch`` and ``dispatch_timeout_s`` are
-accepted for the reference's command line and do nothing: they steer a
-remote-dispatch workaround the card does not need.
+``steps_per_dispatch`` and ``dispatch_timeout_s`` are accepted for the
+reference's command line and do nothing: they steer a remote-dispatch
+workaround (fused multi-step dispatches and their watchdog) that the card
+does not need (ROADMAP.md, Queue 1, "Deliberately not ported").
 """
 
 from __future__ import annotations
 
 import os
+import traceback
 from dataclasses import dataclass
 from typing import Optional
 
@@ -25,9 +29,11 @@ import torch
 
 from .. import resolve_device
 from ..data import pipeline as pipeline_lib
+from ..eval import codec_distance as cd
 from ..utils import config as config_lib
 from ..utils import logdir as logdir_lib
 from ..utils import logger as logger_lib
+from ..utils import registry as registry_lib
 from . import checkpoint as checkpoint_lib
 from .trainer import Trainer
 
@@ -46,6 +52,7 @@ class TrainFlags:
 def train(ae_config_spec: str, pc_config_spec: str,
           dataset_train: str = 'synthetic:64',
           dataset_test: str = 'synthetic:8',
+          dataset_codec_distance: str = 'testset',
           log_dir_root: str = 'logs',
           restore_manager: Optional[checkpoint_lib.RestoreManager] = None,
           flags: TrainFlags = TrainFlags(),
@@ -68,7 +75,10 @@ def train(ae_config_spec: str, pc_config_spec: str,
             restore_dir=restore_manager.ckpt_dir if restore_manager else None)
     print(f'- LOG DIR: {log_dir}')
     if description:
-        print('(description not recorded: the run registry is not ported)')
+        registry_lib.insert_run(
+            log_dir_root, logdir_lib.log_date_from_log_dir(log_dir),
+            ae_rel, pc_rel, description,
+            is_continue=bool(restore_manager and restore_manager.continue_in_ckpt_dir))
 
     ds_train = pipeline_lib.get_dataset(dataset_train)
     ds_test = pipeline_lib.get_dataset(dataset_test)
@@ -92,6 +102,22 @@ def train(ae_config_spec: str, pc_config_spec: str,
     train_logger = logger_lib.MetricsLogger(log_dir, 'train')
     test_logger = logger_lib.MetricsLogger(log_dir, 'test')
     timer = logger_lib.Timer(flags.log_interval_train, ae_config.batch_size)
+
+    # Distance-to-BPG monitor on the test split (ref: train.py:133-143);
+    # NaN when no measured codec curves are available.
+    try:
+        codec_dist = cd.CodecDistance(dataset_codec_distance, 'bpg', 'ms-ssim')
+    except cd.CodecDistanceReadException as e:
+        print(f'Cannot compute CodecDistance: {e}')
+        codec_dist = None
+
+    def d_bpg(bpp: float, ms_ssim: float) -> float:
+        if codec_dist is None:
+            return float('nan')
+        try:
+            return codec_dist.distance(bpp, ms_ssim)
+        except ValueError:      # bpp outside the codec's curve
+            return float('nan')
 
     def put(batch: np.ndarray) -> torch.Tensor:
         """uint8 host batch -> device; from pinned memory on a card, so the
@@ -131,8 +157,12 @@ def train(ae_config_spec: str, pc_config_spec: str,
                 saver.save(state.state_dict(), itr)
 
             if flags.log_interval_test > 0 and itr % flags.log_interval_test == 0:
-                test_out = trainer.eval_step(state, put(ip_test.get_batch()))
-                test_logger.log(itr, {k: float(v) for k, v in test_out.items()})
+                test_batch_np = ip_test.get_batch()
+                test_batch = put(test_batch_np)
+                scalars = {k: float(v) for k, v in trainer.eval_step(state, test_batch).items()}
+                _dump_test_images(log_dir, itr, state, test_batch, test_batch_np)
+                scalars['d_BPG'] = d_bpg(scalars['bpp'], scalars['ms_ssim_eval'])
+                test_logger.log(itr, scalars)
     finally:
         ip_train.stop()
         ip_test.stop()
@@ -142,6 +172,35 @@ def train(ae_config_spec: str, pc_config_spec: str,
         train_logger.close()
         test_logger.close()
     return log_dir
+
+
+def _dump_test_images(log_dir: str, itr: int, state, test_batch: torch.Tensor,
+                      test_batch_np: np.ndarray, n: int = 3) -> None:
+    """Input, output and heatmap PNGs of the first ``n`` test images, the
+    model in eval mode (the reference's image summaries, ref
+    train.py:163-171), as <logdir>/imgs/<itr>_<i>_{in,out,hm}.png. A failure
+    is reported and never ends the run."""
+    try:
+        from PIL import Image
+        with torch.no_grad():
+            enc = state.ae.encode(test_batch[:n].to(torch.float32))
+            x_out = state.ae.decode(enc.qhard)
+        out_dir = os.path.join(log_dir, 'imgs')
+        os.makedirs(out_dir, exist_ok=True)
+        x_out_np = x_out.cpu().numpy().astype(np.uint8)
+        hm_np = None
+        if enc.heatmap is not None:
+            hm_np = enc.heatmap.sum(-1).cpu().numpy()
+            hm_np = (hm_np / max(hm_np.max(), 1e-6) * 255).astype(np.uint8)
+        for i in range(x_out_np.shape[0]):
+            prefix = os.path.join(out_dir, f'{itr:08d}_{i}')
+            Image.fromarray(test_batch_np[i].astype(np.uint8)).save(prefix + '_in.png')
+            Image.fromarray(x_out_np[i]).save(prefix + '_out.png')
+            if hm_np is not None:
+                Image.fromarray(hm_np[i]).save(prefix + '_hm.png')
+    except Exception:   # a summary must not end training
+        print('image dump failed:')
+        traceback.print_exc()
 
 
 def _start_profiler(dev: torch.device):

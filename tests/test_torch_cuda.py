@@ -743,3 +743,47 @@ def test_submit_does_not_wait_for_the_card(cuda_device, K):
     out = lc.decode_batch_finish(d1, device_out=False)
     assert isinstance(out, np.ndarray) and out.dtype == np.int32
     np.testing.assert_array_equal(out, syms.numpy())
+
+
+@pytest.mark.parametrize('pc_spec', ['cvpr/res_shallow', 'base'])
+def test_validate_real_bpp_and_tail_batches_on_card(cuda_device, tmp_path, pc_spec):
+    """The validation path on the card at a small size: a tail batch padded
+    to eval_batch gives each image the results it gets in a full batch
+    (one cuDNN problem shape), and validate() with real_bpp round-trips
+    every bucket through the kernels (K=3: kernels 1-3; K=5: 1, 5, 6)."""
+    from PIL import Image
+    from imgcomp_cvpr_tpu_torch.data.images_iterator import ImagesIterator
+    from imgcomp_cvpr_tpu_torch.eval import validate as validate_lib
+    from imgcomp_cvpr_tpu_torch.eval.val_files import ValidationDirs
+    from imgcomp_cvpr_tpu_torch.models import autoencoder as ael
+    from imgcomp_cvpr_tpu_torch.training import checkpoint as ckpt_lib
+    from imgcomp_cvpr_tpu_torch.utils import logdir as logdir_lib
+    ae_cfg, _ = config_lib.parse_spec('cvpr/low', 'ae')
+    pc_cfg, _ = config_lib.parse_spec(pc_spec, 'pc')
+    em = validate_lib.EvalModel(ae_cfg.replace(arch_param_B=1, num_chan_bn=8),
+                                pc_cfg.replace(arch_param__k=8), device=cuda_device)
+    ael.init_params(em.ae, 0)
+    pcl.init_params(em.pc, 1)
+    rng = np.random.RandomState(0)
+    imgs = [(rng.rand(64, 96, 3) * 255).astype(np.uint8) for _ in range(5)]
+    full = em.fetch_many(imgs[:4], pad_batch_to=4)
+    tail = em.fetch_many(imgs[:3], pad_batch_to=4)
+    for a, b in zip(tail, full):
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+    for i, im in enumerate(imgs):
+        Image.fromarray(im).save(tmp_path / f'im{i}.png')
+    log_dir = logdir_lib.create_unique_log_dir(['a', 'b'], str(tmp_path / 'logs'))
+    ckpt_lib.Saver(logdir_lib.ckpt_dir_for_log_dir(log_dir)).save(
+        {'model': {'ae': em.ae.state_dict(), 'pc': em.pc.state_dict()}}, 1)
+    vd = ValidationDirs(logdir_lib.ckpt_dir_for_log_dir(log_dir), str(tmp_path / 'logs'), 'x')
+    it = ImagesIterator(sorted(str(p) for p in tmp_path.glob('*.png')), 'x')
+    build.reset_launches()
+    validate_lib.validate(vd, it, validate_lib.OutputFlags(real_bpp=True, eval_batch=4),
+                          eval_model=em)
+    torch.cuda.synchronize()
+    names = (('wavefront_forward_encode', 'rans_reverse', 'wavefront_forward_decode')
+             if pc_spec == 'cvpr/res_shallow'
+             else ('plane_forward_encode', 'plane_reverse', 'plane_forward_decode'))
+    assert build.LAUNCHES['quantize'] == 2 and all(build.LAUNCHES[k] >= 2 for k in names)
+    assert vd.get_validated_checkpoints() == [1]

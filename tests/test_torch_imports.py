@@ -2,8 +2,9 @@
 
 A subprocess installs a meta-path finder that refuses ``jax``, ``jaxlib``
 and ``imgcomp_cvpr_tpu`` (not ``imgcomp_cvpr_tpu_torch``), then imports every
-module of the port (the training modules included), ``chip_smoke``,
-``train_torch`` and ``bench_torch``; any such import raises there. ``flax``, ``optax`` and
+module of the port (the training, data and eval modules included),
+``chip_smoke``, ``train_torch``, ``val_torch`` and ``bench_torch``; any such
+import raises there. ``flax``, ``optax`` and
 ``orbax`` are refused too.
 """
 
@@ -31,7 +32,7 @@ GUARD = textwrap.dedent('''
             del sys.modules[mod]
     sys.meta_path.insert(0, Refuse())
     import imgcomp_cvpr_tpu_torch as pkg
-    mods = ['chip_smoke', 'train_torch', 'bench_torch', 'imgcomp_cvpr_tpu_torch']
+    mods = ['chip_smoke', 'train_torch', 'val_torch', 'bench_torch', 'imgcomp_cvpr_tpu_torch']
     mods += [m.name for m in pkgutil.walk_packages(pkg.__path__, 'imgcomp_cvpr_tpu_torch.')]
     for m in mods:
         importlib.import_module(m)
@@ -40,7 +41,10 @@ GUARD = textwrap.dedent('''
     for m in ('training.trainer', 'training.train_loop', 'training.checkpoint',
               'training.optimizers', 'training.losses', 'training.distortions',
               'data.pipeline', 'ops.msssim', 'ops.metrics', 'ops.bits', 'utils.logger',
-              'utils.logdir', 'coding.bpp'):
+              'utils.logdir', 'coding.bpp', 'utils.constants', 'utils.registry',
+              'data.natural', 'data.images_iterator', 'data.val_images', 'ops.msssim_np',
+              'eval.validate', 'eval.val_files', 'eval.compare_imgs', 'eval.other_codecs',
+              'eval.codec_distance', 'eval.plotter'):
         assert 'imgcomp_cvpr_tpu_torch.' + m in mods, m
     print(len(mods), 'modules')
 ''')
@@ -52,4 +56,4 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     n = int(out.stdout.split()[-2])
-    assert n >= 35, out.stdout
+    assert n >= 49, out.stdout

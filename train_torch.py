@@ -22,8 +22,8 @@ def main(argv=None):
     p.add_argument('--dataset_train', '-dtrain', default='imgnet_train')
     p.add_argument('--dataset_test', '-dtest', default='imgnet_test')
     p.add_argument('--dataset_codec_distance', '-dcodec', default='testset',
-                   help='Accepted and unused: the distance-to-BPG monitor is '
-                        'not ported.')
+                   help='Dataset whose BPG curves (under $OTHER_CODECS_ROOT) '
+                        'the d_BPG test monitor reads.')
     p.add_argument('--log_dir_root', '-o', default='logs', metavar='LOG_DIR_ROOT')
     p.add_argument('--log_interval_train', '-ltrain', type=int, default=100)
     p.add_argument('--log_interval_save', '-lsave', type=int, default=1000)
@@ -74,6 +74,7 @@ def main(argv=None):
     return train_loop.train(
         flags.autoencoder_config_path, flags.probclass_config_path,
         dataset_train=flags.dataset_train, dataset_test=flags.dataset_test,
+        dataset_codec_distance=flags.dataset_codec_distance,
         log_dir_root=flags.log_dir_root,
         restore_manager=checkpoint_lib.RestoreManager.from_flags(flags),
         flags=train_flags,
