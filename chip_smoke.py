@@ -84,10 +84,22 @@ Phases, one line each:
      6c's own run (image dumps at its
      test step, d_BPG NaN without BPG curves, its registry entry) is
      validated once by val_torch.py on 8 images, its last checkpoint;
-  8. the kernels line: each kernel's launches in its main-path phase (4, 5
+  8. the tools (imgcomp_cvpr_tpu_torch/tools) at full width: codec_cli's
+     compress / decompress / roundtrip with the trained npz on 3 natkodak24
+     images and a 509x765 crop of one (every .icz file CRC-verified and
+     decoded twice to the same pixels; bpp and ms of each mode printed), and
+     --log_dir on phase 7's K=5 checkpoint (kernels 5 and 6); profile_codec
+     at B=8 (its JSON report); ab_streams dump twice, compare and cross for
+     the cuda and cuda_planar codecs; parity_check on a TF1 checkpoint that
+     the port's pure exporter writes from the trained npz, over 8 natkodak24
+     images: PASS against phase 7's bpp and MS-SSIM for those images, FAIL at
+     1.2x the bpp. Kernels 1, 2, 3, 5 and 6 must launch, and each is held
+     to its plain version on the inputs the tools gave it (not counted);
+  9. the kernels line: each kernel's launches in its main-path phase (4, 5
      or 6), its error against the plain version, times and bound; the
      kernels of phase 7's real-bpp runs also give ``launches_validation``
-     (phase 7's count, K=3 sweep and K=5 run). Kernel 1
+     (phase 7's count, K=3 sweep and K=5 run), those of the tools
+     ``launches_tools`` (phase 8's count). Kernel 1
      has two rows: ``quantize`` (codec shape, phase 4's launches) and
      ``quantize_train`` (training shape, phase 6b's launches). Kernels 1
      and 7 are short beside the host work of a wrapper call, so their rows
@@ -127,6 +139,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 NATKODAK = os.path.join(HERE, 'work_rd', 'natkodak24')   # 24 PNGs of 512x768
 VAL_ROOT = os.path.join(HERE, 'build', 'chip_smoke_val')  # phase 7's log root
 VAL_BATCH, VAL_IMAGES = 8, 24
+TOOLS_ROOT = os.path.join(HERE, 'build', 'chip_smoke_tools')  # phase 8's files
 OVERHEAD_LIMIT_PCT = 1.0    # real/theory bits at Kodak size, trained model (PERF.md)
 
 
@@ -919,9 +932,8 @@ def validation_path(dev):
     from PIL import Image
     from imgcomp_cvpr_tpu_torch import weights as weights_lib
     from imgcomp_cvpr_tpu_torch.coding import codec as codec_lib
-    from imgcomp_cvpr_tpu_torch.coding import cuda_codec, planar_codec
+    from imgcomp_cvpr_tpu_torch.coding import cuda_codec
     from imgcomp_cvpr_tpu_torch.coding import cuda_kernel as ck
-    from imgcomp_cvpr_tpu_torch.coding import planar_kernel as plk
     from imgcomp_cvpr_tpu_torch.data import val_images
     from imgcomp_cvpr_tpu_torch.data.images_iterator import ImagesIterator
     from imgcomp_cvpr_tpu_torch.eval import validate as validate_lib
@@ -993,30 +1005,13 @@ def validation_path(dev):
     syms8 = torch.from_numpy(np.stack([o['sym'] for o in first])).to(dev)
     syms8 = syms8.permute(0, 3, 1, 2).contiguous()              # (B, C, H, W)
     shape = tuple(syms8.shape[1:])
-    n = int(np.prod(shape))
-    syms_flat = syms8.reshape(VAL_BATCH, n).int().contiguous()
+    held = hold_coder(7, 'the first bucket\'s symbols', em.pc, em.pc_config,
+                      em.ae.encoder.centers, syms8, dev)
+    sched8 = ck.build_schedule(shape)
     with torch.no_grad():
         fw = cuda_codec.fold_weights(em.pc, em.ae.encoder.centers)
-        f_k, s_k = ck.wavefront_forward(ck.MODE_ENCODE, fw, shape, true_syms=syms_flat)
-        enc_plain_ms, (f_p, s_p) = host_ms(lambda: ck.wavefront_encode_plain(
-            fw, shape, syms_flat))
-    sched8 = ck.build_schedule(shape)
-    act = torch.from_numpy(sched8.idx_cm < n).to(dev)
-    flips = int((((f_k != f_p) | (s_k != s_p)) & act).sum().item())
-    entries = int(act.sum().item()) * VAL_BATCH
-    if flips > 1e-3 * entries:
-        raise AssertionError(f'7: kernel 2 encode at B={VAL_BATCH}: {flips} flips > 0.1% of '
-                             f'{entries}')
-    rev_k = ck.rans_reverse(f_k, s_k, shape, 1)
-    rev_plain_ms, rev_p = host_ms(lambda: ck.rans_reverse_plain(f_k, s_k, shape, 1))
-    if not same_reverse(rev_k, rev_p, [(i, i) for i in range(VAL_BATCH)]):
-        raise AssertionError(f'7: kernel 3 at B={VAL_BATCH} differs from its plain version')
-    print(f'[7 kernels 2 and 3 at B={VAL_BATCH}] the first bucket\'s symbols {tuple(syms8.shape)}: '
-          f'kernel 2\'s encode tables vs its plain version ({enc_plain_ms / 1e3:.1f} s): '
-          f'{flips} boundary flips of {entries} active entries (tol 0.1%); kernel 3 byte-equal '
-          f'to its plain version ({rev_plain_ms / 1e3:.1f} s) on all {VAL_BATCH} images '
-          f'({int(rev_k[1].sum().item())} words); the scan at B={VAL_BATCH} takes clusters of '
-          f'{ck.scan_cluster(fw.w2.shape[-1], fw.w4.shape[-1], sched8.CQ, sched8.T, VAL_BATCH)} '
+    print(f'[7 kernels 2 and 3 at B={VAL_BATCH}] {held}; the scan at B={VAL_BATCH} takes '
+          f'clusters of {ck.scan_cluster(fw.w2.shape[-1], fw.w4.shape[-1], sched8.CQ, sched8.T, VAL_BATCH)} '
           f'blocks, held by the sweep\'s round trips', flush=True)
     lc = codec_lib.LatentCodec(em.pc, em.pc_config, device=dev)
     ms = {'fetch': [], 'codec': []}
@@ -1148,34 +1143,247 @@ def validation_path(dev):
     # Kernels 5 and 6 on the K=5 run's 4 images (the first bucket's first
     # four: one shape, so the same symbols) against their plain versions.
     pc5_config, _ = config_lib.parse_spec('base', 'pc')
-    coder = planar_codec.PlanarCoder(state5.pc, pc5_config, device=dev)
-    syms4 = syms8[:4].int().contiguous()
-    with torch.no_grad():
-        sched5, fold5 = coder._prepare(shape, em.ae.encoder.centers)
-        f5_k, s5_k = coder.encode_tables(syms4, fold5)
-        plain5_ms, (f5_p, s5_p) = host_ms(lambda: coder.encode_tables(syms4, fold5, plain=True))
-    flips5 = int(((f5_k != f5_p) | (s5_k != s5_p)).sum().item())
-    entries5 = int((sched5.idx_cm < shape[1] * shape[2]).sum()) * 4 * shape[0]
-    if flips5 > 1e-3 * entries5:     # phase 3's tolerance for this comparison
-        raise AssertionError(f'7: kernel 5 encode at B=4: {flips5} flips > 0.1% of {entries5}')
-    rev5_k = plk.plane_reverse(f5_k, s5_k, shape, coder.K, 1)
-    rev5_ms, rev5_p = host_ms(lambda: plk.plane_reverse_plain(f5_k, s5_k, shape, coder.K, 1))
-    if not same_reverse(rev5_k, rev5_p, [(i, i) for i in range(4)]):
-        raise AssertionError('7: kernel 6 at B=4 differs from its plain version')
+    held5 = hold_coder(7, 'the K=5 run\'s 4 images', state5.pc, pc5_config,
+                       em.ae.encoder.centers, syms8[:4], dev)
     print(f'[7 validation, K=5] trained ae cvpr/low + seeded pc base (K=5), --how_many 4 '
           f'--real_bpp through val_torch.py: round trips CRC-verified bit-exact; bpp '
           f'{summary5["bpp"]:.5f} (a seeded context model: this bpp describes no trained '
-          f'codec), launches { {k: v for k, v in launches5.items() if v} }; on its 4 images '
-          f'kernel 5\'s encode tables vs its plain version ({plain5_ms / 1e3:.1f} s): {flips5} '
-          f'flips of {entries5} active entries (tol 0.1%), kernel 6 byte-equal to its plain '
-          f'version ({rev5_ms / 1e3:.1f} s); --how_many 5 '
+          f'codec), launches { {k: v for k, v in launches5.items() if v} }; {held5}; '
+          f'--how_many 5 '
           f'(one bucket of 5 padded to 8): measures equal to the full sweep\'s first five, '
           f'exactly', flush=True)
     log.close()
     print(f'[7 phase time] {time.time() - t_phase:.1f} s', flush=True)
     merged = dict(launches)
     merged.update({k: v for k, v in launches5.items() if k.startswith('plane')})
-    return merged
+    return merged, {'rows': rows, 'log5': log5}
+
+
+def hold_coder(phase, label, pc, pc_config, centers, syms, dev):
+    """Hold a codec's encode-side kernels to their plain versions on the
+    symbols (B, C, H, W) int8 that a tool hands the codec: for K=3 kernel
+    2's encode tables and kernel 3's words / counts / states / tail
+    lengths, for any other K kernel 5's tables and kernel 6's outputs.
+    Tables within phase 3's flip tolerance, the reverse encoders byte for
+    byte. Raises naming the phase. Returns one line of text."""
+    import torch
+    from imgcomp_cvpr_tpu_torch.coding import cuda_codec, planar_codec
+    from imgcomp_cvpr_tpu_torch.coding import cuda_kernel as ck
+    from imgcomp_cvpr_tpu_torch.coding import planar_kernel as plk
+    B, shape = syms.shape[0], tuple(syms.shape[1:])
+    n = int(np.prod(shape))
+    with torch.no_grad():
+        if pc_config.kernel_size == 3:
+            flat = syms.reshape(B, n).int().contiguous()
+            fw = cuda_codec.fold_weights(pc, centers)
+            f_k, s_k = ck.wavefront_forward(ck.MODE_ENCODE, fw, shape, true_syms=flat)
+            enc_ms, (f_p, s_p) = host_ms(lambda: ck.wavefront_encode_plain(fw, shape, flat))
+            act = torch.from_numpy(ck.build_schedule(shape).idx_cm < n).to(dev)
+            flips = int((((f_k != f_p) | (s_k != s_p)) & act).sum().item())
+            entries = int(act.sum().item()) * B
+            rev_k = ck.rans_reverse(f_k, s_k, shape, 1)
+            rev_ms, rev_p = host_ms(lambda: ck.rans_reverse_plain(f_k, s_k, shape, 1))
+            names = 'kernel 2\'s encode tables', 'kernel 3'
+        else:
+            coder = planar_codec.PlanarCoder(pc, pc_config, device=dev)
+            sched, fold = coder._prepare(shape, centers)
+            f_k, s_k = coder.encode_tables(syms.int().contiguous(), fold)
+            enc_ms, (f_p, s_p) = host_ms(lambda: coder.encode_tables(
+                syms.int().contiguous(), fold, plain=True))
+            flips = int(((f_k != f_p) | (s_k != s_p)).sum().item())
+            entries = int((sched.idx_cm < shape[1] * shape[2]).sum()) * B * shape[0]
+            rev_k = plk.plane_reverse(f_k, s_k, shape, coder.K, 1)
+            rev_ms, rev_p = host_ms(lambda: plk.plane_reverse_plain(f_k, s_k, shape, coder.K, 1))
+            names = 'kernel 5\'s encode tables', 'kernel 6'
+    if flips > 1e-3 * entries:      # phase 3's tolerance for this comparison
+        raise AssertionError(f'{phase}: {label}: {names[0]}: {flips} flips > 0.1% of '
+                             f'{entries}')
+    if not same_reverse(rev_k, rev_p, [(i, i) for i in range(B)]):
+        raise AssertionError(f'{phase}: {label}: {names[1]} differs from its plain version')
+    return (f'{label} {tuple(syms.shape)}: {names[0]} vs the plain version '
+            f'({enc_ms / 1e3:.1f} s) {flips} flips of {entries} active entries (tol 0.1%), '
+            f'{names[1]} byte-equal to the plain version ({rev_ms / 1e3:.1f} s, '
+            f'{int(rev_k[1].sum().item())} words)')
+
+
+def tools_path(dev, val_info):
+    """Phase 8: the tools at full width on the card. codec_cli's three modes
+    with the trained npz on 3 natkodak24 images and a 509x765 crop (every
+    file CRC-verified, decoded twice to the same pixels), and --log_dir on
+    phase 7's K=5 checkpoint; profile_codec at B=8; ab_streams dump twice,
+    compare and cross for both codecs; parity_check on a TF1 checkpoint that
+    the port's pure exporter writes from the trained npz, against phase 7's
+    numbers for 8 images (PASS) and at 1.2x their bpp (FAIL). Then, with
+    the phase's launch counts read, each kernel against its plain version
+    on the phase's own inputs: kernel 1 on the B=1 eval z of one image (K=3)
+    and of the --log_dir image (K=5), kernels 2 and 3 on the first one's
+    B=1 symbols, kernels 5 and 6 on the second's, and both codecs' encode
+    side on ab_streams' B=8 symbols. Returns the launch counts of the
+    tools' runs."""
+    import io
+    import torch
+    from PIL import Image
+    from imgcomp_cvpr_tpu_torch import weights as weights_lib
+    from imgcomp_cvpr_tpu_torch.ops import metrics as metrics_lib
+    from imgcomp_cvpr_tpu_torch.ops.kernels import build
+    from imgcomp_cvpr_tpu_torch.tools import ab_streams, codec_cli, parity_check
+    from imgcomp_cvpr_tpu_torch.tools import profile_codec, tf1_import
+    from imgcomp_cvpr_tpu_torch.utils import config as config_lib
+
+    t_phase = time.time()
+    shutil.rmtree(TOOLS_ROOT, ignore_errors=True)
+    os.makedirs(TOOLS_ROOT)
+    names = sorted(os.listdir(NATKODAK))
+    pngs = [os.path.join(NATKODAK, n) for n in names[:3]]
+    with Image.open(pngs[0]) as im:
+        crop = np.asarray(im.convert('RGB'))[1:510, 2:767]          # 509 x 765
+    pngs.append(os.path.join(TOOLS_ROOT, 'crop509x765.png'))
+    Image.fromarray(crop).save(pngs[-1])
+    torch.cuda.synchronize()
+    build.reset_launches()
+
+    def synced_ms(fn, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, out
+
+    def quiet(fn, *args):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn(*args)
+        return out, buf.getvalue().strip()
+
+    model = codec_cli.load_model(npz=ASSET, device=dev)
+    model.compress(np.asarray(Image.open(pngs[0]).convert('RGB')))      # warm-up
+    for png in pngs:
+        stem = os.path.join(TOOLS_ROOT, os.path.basename(png)[:-4])
+        img = np.asarray(Image.open(png).convert('RGB'))
+        args = ['--npz', ASSET, '--device', dev.type]
+        t_main = {}
+        for mode, src, dst in (('compress', png, stem + '.icz'),
+                               ('decompress', stem + '.icz', stem + '_out.png'),
+                               ('roundtrip', png, stem + '_rt.icz')):
+            t_main[mode], (_, said) = synced_ms(quiet, codec_cli.main, [mode, src, '-o', dst] + args)
+        blob = open(stem + '.icz', 'rb').read()
+        c_ms, again = synced_ms(model.compress, img)
+        d_ms, out = synced_ms(model.decompress, blob)
+        out2 = model.decompress(blob)
+        written = np.asarray(Image.open(stem + '_out.png'))
+        if again != blob or open(stem + '_rt.icz', 'rb').read() != blob:
+            raise AssertionError(f'8: {png}: compress gave other bytes on a second run')
+        if not (np.array_equal(out, out2) and np.array_equal(out, written)) or out.shape != img.shape:
+            raise AssertionError(f'8: {png}: two decompressions of one file differ')
+        psnr = metrics_lib.psnr_np(img, out)
+        if not psnr > 15.0:
+            raise AssertionError(f'8: {png}: PSNR {psnr:.2f} dB')
+        print(f'[8 codec_cli] {os.path.basename(png)} {img.shape[0]}x{img.shape[1]}: '
+              f'{len(blob)} bytes = {len(blob) * 8 / (img.shape[0] * img.shape[1]):.5f} bpp '
+              f'(file, header included), PSNR {psnr:.3f} dB; decode CRC-verified, twice the '
+              f'same pixels, equal to the PNG of decompress; CodecModel ms (CUDA-synced host '
+              f'clock): compress {c_ms:.1f}, decompress {d_ms:.1f}; main() ms (model load and '
+              f'PNG I/O included): ' + ', '.join(f'{k} {v:.1f}' for k, v in t_main.items())
+              + f'; roundtrip said: {said.splitlines()[-1]}', flush=True)
+
+    # K=5: phase 7's seeded pc base checkpoint through --log_dir (kernels 5, 6).
+    n5 = {k: build.LAUNCHES[k] for k in ('plane_forward_encode', 'plane_forward_decode',
+                                         'plane_reverse')}
+    rt5_ms, (_, said5) = synced_ms(quiet, codec_cli.main, [
+        'roundtrip', pngs[0], '-o', os.path.join(TOOLS_ROOT, 'k5.icz'),
+        '--log_dir', val_info['log5'], '--device', dev.type])
+    if any(build.LAUNCHES[k] <= n for k, n in n5.items()):
+        raise AssertionError('8: codec_cli --log_dir (K=5) did not launch kernels 5 and 6')
+    print(f'[8 codec_cli --log_dir] phase 7\'s K=5 checkpoint (seeded pc base, impl id 6): '
+          f'{said5.splitlines()[-1]} ({rt5_ms:.1f} ms with the model load)', flush=True)
+
+    report = profile_codec.profile(batch=8, device=dev)
+    print(f'[8 profile_codec] {json.dumps(report)}', flush=True)
+
+    for impl, k in (('cuda', '3'), ('cuda_planar', '5')):
+        dumps = [os.path.join(TOOLS_ROOT, f'ab_{impl}_{i}.pkl') for i in range(2)]
+        said = []
+        for d in dumps:
+            said.append(quiet(ab_streams.main, ['dump', '--impl', impl, '--k', k, '--out', d])[1])
+        rc, said_c = quiet(ab_streams.main, ['compare'] + dumps)
+        rc_x, said_x = quiet(ab_streams.main, ['cross', dumps[0]])
+        if rc or rc_x:
+            raise AssertionError(f'8: ab_streams {impl}: compare rc {rc}, cross rc {rc_x}: '
+                                 f'{said_c} {said_x}')
+        print(f'[8 ab_streams] impl {impl} (K={k}, shape (16, 24, 36), batch 8): '
+              f'{said[0].splitlines()[-1]}; {said_c}; {said_x}', flush=True)
+
+    # parity_check: a TF1 checkpoint of the trained npz, 8 images.
+    ae_config, _ = config_lib.parse_spec('cvpr/low', 'ae')
+    tree = weights_lib.load_npz(ASSET)
+    prefix = tf1_import.export_tf1_checkpoint(tree['params'], tree['batch_stats'], ae_config,
+                                              os.path.join(TOOLS_ROOT, 'tf1', 'ckpt-9000'))
+    imgs8 = os.path.join(TOOLS_ROOT, 'imgs8')
+    os.makedirs(imgs8)
+    for n in names[:VAL_BATCH]:
+        shutil.copy(os.path.join(NATKODAK, n), imgs8)
+    rows = [r.split(',') for r in val_info['rows'][1:]]
+    rows = {r[0]: r for r in rows}
+    bpp7 = float(np.mean([float(rows[n][1]) for n in names[:VAL_BATCH]]))
+    ms7 = float(np.mean([float(rows[n][2]) for n in names[:VAL_BATCH]]))
+    common = [prefix, '--images', imgs8, '--ae', 'cvpr/low', '--pc', 'cvpr/res_shallow',
+              '--device', dev.type, '--expected_msssim', repr(ms7), '--expected_bpp']
+    rc_pass, said_pass = quiet(parity_check.main, common + [repr(bpp7)])
+    rc_fail, said_fail = quiet(parity_check.main, common + [repr(1.2 * bpp7)])
+    if rc_pass != 0 or rc_fail != 1:
+        raise AssertionError(f'8: parity_check rc {rc_pass} (want 0) / {rc_fail} (want 1): '
+                             f'{said_pass} | {said_fail}')
+    print(f'[8 parity_check] TF1 checkpoint of the trained npz (pure exporter, '
+          f'{os.path.getsize(prefix + ".data-00000-of-00001")} data bytes), {VAL_BATCH} '
+          f'natkodak24 images against phase 7\'s bpp {bpp7:.6f} / MS-SSIM {ms7:.6f}: PASS '
+          f'({" ".join(said_pass.splitlines()[-3:])}); at 1.2x bpp FAIL '
+          f'({said_fail.splitlines()[-2]})', flush=True)
+
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    for k in ('quantize', 'wavefront_forward_encode', 'wavefront_forward_decode', 'rans_reverse',
+              'plane_forward_encode', 'plane_forward_decode', 'plane_reverse'):
+        if launches[k] < 1:
+            raise AssertionError(f'8: kernel {k} was not launched by the tools')
+    print(f'[8 tools] launches {dict((k, v) for k, v in launches.items() if v)}', flush=True)
+
+    # The plain holds, on the inputs the tools handed the kernels.
+    from imgcomp_cvpr_tpu_torch.data.images_iterator import add_padding
+    from imgcomp_cvpr_tpu_torch.eval.validate import deterministic_cudnn
+    from imgcomp_cvpr_tpu_torch.ops.kernels import quantize as qk
+    model5 = codec_cli.load_model(log_dir=val_info['log5'], device=dev)
+    t_holds = time.time()
+    holds = []
+    for m, png in ((model, pngs[0]), (model5, pngs[0])):
+        padded, _ = add_padding(np.asarray(Image.open(png).convert('RGB')), codec_cli._PAD)
+        x = torch.from_numpy(padded[None]).to(dev, torch.float32)
+        with torch.no_grad(), deterministic_cudnn():
+            enc = m.ae.encode(x)
+        z, centers = enc.z.contiguous(), m.ae.encoder.centers.detach()
+        qs_k, qh_k, sym_k = qk.quantize_fwd(z, centers)
+        qs_p, qh_p, sym_p = qk.quantize_plain(z, centers)
+        q_err = (qs_k - qs_p).abs().max().item()
+        label = f'{os.path.basename(png)} K={m.pc.config.kernel_size}'
+        if not (torch.equal(sym_k, sym_p) and torch.equal(qh_k, qh_p)
+                and torch.equal(sym_k, enc.symbols)) or q_err > 1e-5:
+            raise AssertionError(f'8: {label}: kernel 1 on the eval z differs from its plain '
+                                 f'version (qsoft max abs err {q_err})')
+        syms = sym_k.permute(0, 3, 1, 2).to(torch.int8).contiguous()
+        holds.append(f'kernel 1 on {label}\'s z {tuple(z.shape)}: symbols and qhard equal, '
+                     f'qsoft max abs err {q_err:.3g} (tol 1e-5); '
+                     + hold_coder(8, f'codec_cli {label}', m.pc, m.pc.config, m._centers_dev,
+                                  syms, dev))
+    for impl, k in (('cuda', 3), ('cuda_planar', 5)):
+        # ab_streams dump's workload at its defaults: shape, L, seed, batch
+        pc, cfg, centers, rng, _ = ab_streams._build((16, 24, 36), 6, k, 0, dev.type)
+        syms = torch.from_numpy(rng.randint(0, 6, size=(8, 16, 24, 36)).astype(np.int8))
+        holds.append(hold_coder(8, f'ab_streams {impl}', pc, cfg,
+                                torch.from_numpy(centers).to(dev), syms.to(dev), dev))
+    for h in holds:
+        print(f'[8 plain holds] {h}', flush=True)
+    print(f'[8 phase time] {time.time() - t_phase:.1f} s ({time.time() - t_holds:.1f} s of it the '
+          f'plain holds)', flush=True)
+    return launches
 
 
 def main_path(ae, codec, x, centers):
@@ -1786,7 +1994,10 @@ def main(argv):
     launches[6] = training_path(dev, rows)
 
     # ---- phase 7: the validation path -------------------------------------
-    launches[7] = validation_path(dev)
+    launches[7], val_info = validation_path(dev)
+
+    # ---- phase 8: the tools ------------------------------------------------
+    launches[8] = tools_path(dev, val_info)
 
     kernels = []
     for phase, name in ((4, 'quantize'), (6, 'quantize_train'), (6, 'quantize_bwd'),
@@ -1810,6 +2021,8 @@ def main(argv):
                             library_ms=r['library_ms']))
         if name in launches[7]:     # the validation path's own run (phase 7)
             kernels[-1]['launches_validation'] = launches[7][name]
+        if name not in ('quantize_train', 'quantize_bwd'):      # the tools' run (phase 8)
+            kernels[-1]['launches_tools'] = launches[8][name]
         if 'quantizer' in r:    # kernels 1 and 7: device time beside the host's
             q = r['quantizer']
             kernels[-1].update(device_ms=q['device_ms'], graph_ms=q['graph_ms'],

@@ -324,6 +324,9 @@ def logits_to_cdf(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 MODE_DECODE, MODE_ENCODE = 0, 1
 
 
+_ACC_BLOCK_FLOATS = 1 << 22   # products a block of _layer_step's host chain
+
+
 def _layer_step(src: torch.Tensor, taps: torch.Tensor, w: torch.Tensor,
                 b: torch.Tensor) -> torch.Tensor:
     """src (B, G+1, cin), taps (nc, ntaps) -> (B, nc, cout) pre-activation,
@@ -334,6 +337,17 @@ def _layer_step(src: torch.Tensor, taps: torch.Tensor, w: torch.Tensor,
     wf = w.reshape(-1, w.shape[-1])
     acc = torch.zeros(x.shape[0], x.shape[1], wf.shape[1], dtype=x.dtype,
                       device=x.device)
+    if x.device.type == 'cpu':
+        # The same chain on the host in blocks of (tap, channel) rows: the
+        # rounded products of a block, the running sum added to its first,
+        # then numpy's add.accumulate, which adds in order in float32.
+        xn, wn, accn = x.detach().numpy(), wf.detach().numpy(), acc.numpy()
+        rows = max(1, _ACC_BLOCK_FLOATS // max(1, accn.size))
+        for j in range(0, wn.shape[0], rows):
+            p = xn[..., j:j + rows, None] * wn[j:j + rows]
+            p[..., 0, :] += accn
+            accn = np.add.accumulate(p, axis=-2)[..., -1, :]
+        return torch.from_numpy(np.ascontiguousarray(accn)) + b
     for j in range(wf.shape[0]):
         acc = acc + x[..., j, None] * wf[j]
     return acc + b

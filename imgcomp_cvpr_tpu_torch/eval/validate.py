@@ -86,7 +86,7 @@ class EvalModel:
         # pixel count too (the bits cover the padded latent, so pad rows
         # raise the bpp of an image whose sides are not multiples of 8).
         crop = (slice(None), slice(hp_lo, hp_lo + oh), slice(wp_lo, wp_lo + ow))
-        with _deterministic_cudnn():
+        with deterministic_cudnn():
             with record_function('val/ae_encode'):
                 enc = self.ae.encode(x)
             with record_function('val/ae_decode'):
@@ -138,7 +138,9 @@ class EvalModel:
 
 
 @contextlib.contextmanager
-def _deterministic_cudnn():
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside the block (the previous
+    setting comes back after it)."""
     prev = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:

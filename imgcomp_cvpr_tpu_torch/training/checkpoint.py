@@ -56,10 +56,8 @@ class Saver:
         tmp = p + '.tmp'
         torch.save(tree, tmp)
         os.replace(tmp, p)
-        manifest = path.join(self.ckpt_dir, VAR_NAMES_FILE)
-        if not path.exists(manifest):
-            with open(manifest, 'w') as f:
-                json.dump(sorted(flatten(tree)), f, indent=1)
+        if not path.exists(path.join(self.ckpt_dir, VAR_NAMES_FILE)):
+            write_manifest(self.ckpt_dir, tree)
         self._apply_retention()
         return p
 
@@ -90,7 +88,7 @@ class Saver:
             if not ckpts:
                 raise FileNotFoundError(f'No ckpt with itr <= {itr} in {self.ckpt_dir}')
         itr_found, p = ckpts[-1]
-        return torch.load(p, map_location='cpu', weights_only=True), itr_found
+        return restore_tree(p), itr_found
 
 
 def all_ckpts_with_iterations(ckpt_dir: str) -> List[Tuple[int, str]]:
@@ -103,6 +101,25 @@ def all_ckpts_with_iterations(ckpt_dir: str) -> List[Tuple[int, str]]:
         if m:
             out.append((int(m.group(1)), path.join(ckpt_dir, name)))
     return sorted(out)
+
+
+def iteration_of_checkpoint(ckpt_path: str) -> int:
+    """The iteration in a checkpoint's file name (``.../ckpt-<itr>``)."""
+    m = re.search(re.escape(CKPT_PREFIX) + r'(\d+)', path.basename(ckpt_path))
+    if not m:
+        raise ValueError(f'not a checkpoint path: {ckpt_path}')
+    return int(m.group(1))
+
+
+def restore_tree(ckpt_path: str) -> Dict:
+    """The whole tree of one checkpoint file, on the CPU."""
+    return torch.load(ckpt_path, map_location='cpu', weights_only=True)
+
+
+def write_manifest(ckpt_dir: str, tree: Dict) -> None:
+    """(Re)write the ckpt dir's var_names.json for ``tree``'s leaves."""
+    with open(path.join(ckpt_dir, VAR_NAMES_FILE), 'w') as f:
+        json.dump(sorted(flatten(tree)), f, indent=1)
 
 
 def merge_with_skip(init_tree: Dict, restored_tree: Dict,
