@@ -95,11 +95,32 @@ Phases, one line each:
      images: PASS against phase 7's bpp and MS-SSIM for those images, FAIL at
      1.2x the bpp. Kernels 1, 2, 3, 5 and 6 must launch, and each is held
      to its plain version on the inputs the tools gave it (not counted);
-  9. the kernels line: each kernel's launches in its main-path phase (4, 5
+  9. the scan codecs and data parallelism. 9a: LatentCodec(impl=direct,
+     cached, ring), container impl id 7, on the card with the trained K=3
+     model on 64x96 crops of three natkodak24 images (latent (32, 8, 12),
+     B=3): byte-identical containers, each decoding the shared streams
+     CRC-verified bit-exact, per-cell tables equal to kernel 2's on every
+     cell, encode / decode ms; direct at K=5 (phase 5's seeded pc base) on
+     the first crop, bit-exact, its per-cell tables held to kernel 5's on
+     the card (|delta| <= 2 on at most 1% of the cells: two summation
+     orders). 9b: the data-parallel train
+     step at full width on phase 6's batch: world size 1 under NCCL, 2
+     steps (loss, the averaged gradients, the parameters) equal bit for bit
+     to 2 non-parallel steps (deterministic cuDNN), its ms a step beside the
+     non-parallel step's and phase 6b's; then 2 spawned ranks sharing the
+     card under gloo against 1 rank, one step, the averaged gradients
+     included (held to twice the distance between one rank's gradients
+     on the batch and on the batch reversed).
+     9c: phase 7's sweep with and without real_bpp, and its K=5 run,
+     through EvalModel and LatentCodec given the card twice: phase 7's
+     measures rows and stream bytes exactly;
+ 10. the kernels line: each kernel's launches in its main-path phase (4, 5
      or 6), its error against the plain version, times and bound; the
      kernels of phase 7's real-bpp runs also give ``launches_validation``
      (phase 7's count, K=3 sweep and K=5 run), those of the tools
-     ``launches_tools`` (phase 8's count). Kernel 1
+     ``launches_tools`` (phase 8's count), every kernel
+     ``launches_parallel`` (phase 9's data-parallel runs: 9b's train steps
+     for kernels 1 and 7, 9c's real-bpp validation for 1, 2, 3, 5, 6). Kernel 1
      has two rows: ``quantize`` (codec shape, phase 4's launches) and
      ``quantize_train`` (training shape, phase 6b's launches). Kernels 1
      and 7 are short beside the host work of a wrapper call, so their rows
@@ -651,7 +672,7 @@ def quantize_bwd_kernel(dev, trained_centers, rows):
 def training_path(dev, rows):
     """Phase 6: the training path through Trainer and train_loop.train at
     full width. Adds kernel 1's row at the training shape to ``rows`` and
-    returns the launch counts of the 20-step run."""
+    returns the launch counts of the 20-step run and 6b's ms a step."""
     import tempfile
     import torch
     from imgcomp_cvpr_tpu_torch.data import pipeline as pipeline_lib
@@ -917,7 +938,7 @@ def training_path(dev, rows):
               f'curves), the description in the run registry; val_torch.py on the run\'s '
               f'last checkpoint (34), 8 natkodak24 images: bpp {summary["bpp"]:.5f} ms-ssim '
               f'{summary["ms-ssim"]:.5f} psnr {summary["psnr"]:.3f}', flush=True)
-    return launches
+    return launches, fwd + bwd + opt
 
 
 def validation_path(dev):
@@ -1015,7 +1036,7 @@ def validation_path(dev):
           f'blocks, held by the sweep\'s round trips', flush=True)
     lc = codec_lib.LatentCodec(em.pc, em.pc_config, device=dev)
     ms = {'fetch': [], 'codec': []}
-    bits = []
+    bits, streams = [], []
 
     def timed(fn, key):
         def run(*args, **kwargs):
@@ -1026,6 +1047,7 @@ def validation_path(dev):
             ms[key].append(ev)
             if fn.__name__ == 'encode_batch':
                 bits.extend((r.num_bits, r.theoretical_bits) for r in out)
+                streams.extend(r.bitstream for r in out)
             return out
         return run
 
@@ -1037,6 +1059,7 @@ def validation_path(dev):
         for v in ms.values():
             v.clear()
         bits.clear()
+        streams.clear()
         flags = validate_lib.OutputFlags(save_ours=real_bpp, ckpt_step=-1, real_bpp=real_bpp,
                                          eval_batch=VAL_BATCH)
         torch.cuda.synchronize()
@@ -1156,7 +1179,10 @@ def validation_path(dev):
     print(f'[7 phase time] {time.time() - t_phase:.1f} s', flush=True)
     merged = dict(launches)
     merged.update({k: v for k, v in launches5.items() if k.startswith('plane')})
-    return merged, {'rows': rows, 'log5': log5}
+    rows_k5 = open(os.path.join(VAL_ROOT, f'{job5} natkodak24',
+                                'measures.csv')).read().splitlines()
+    return merged, {'rows': rows, 'log5': log5, 'log_dir': log_dir, 'streams': list(streams),
+                    'rows_k5': rows_k5}
 
 
 def hold_coder(phase, label, pc, pc_config, centers, syms, dev):
@@ -1384,6 +1410,445 @@ def tools_path(dev, val_info):
     print(f'[8 phase time] {time.time() - t_phase:.1f} s ({time.time() - t_holds:.1f} s of it the '
           f'plain holds)', flush=True)
     return launches
+
+
+def scan_twins(dev, ae, pc, pc_config, pc5, pc5_config):
+    """Phase 9a: the scan codecs of container impl id 7 on the card. The
+    trained K=3 model on 64x96 crops of three natkodak24 images (latent
+    (32, 8, 12), B=3) through LatentCodec(impl=direct / cached / ring):
+    byte-identical containers, each decoding the (shared) streams
+    CRC-verified bit-exact, per-cell tables equal to kernel 2's on every
+    entry; direct at K=5 (seeded pc base) round trip on the first crop, its
+    tables held to kernel 5's. Returns text."""
+    import torch
+    from PIL import Image
+    from imgcomp_cvpr_tpu_torch.coding import codec as codec_lib
+    from imgcomp_cvpr_tpu_torch.coding import cuda_codec
+    from imgcomp_cvpr_tpu_torch.coding import cuda_kernel as ck
+    from imgcomp_cvpr_tpu_torch.coding import planar, planar_codec, scan_codec
+    from imgcomp_cvpr_tpu_torch.data import val_images
+
+    paths, _ = val_images.get_image_paths(NATKODAK)
+    crops = [np.asarray(Image.open(p).convert('RGB'))[:64, :96] for p in paths[:3]]
+    with torch.no_grad():
+        enc = ae.encode(torch.from_numpy(np.stack(crops)).to(dev).to(torch.float32))
+    syms = enc.symbols.permute(0, 3, 1, 2).contiguous()       # (3, 32, 8, 12)
+    shape, B = tuple(syms.shape[1:]), syms.shape[0]
+    n = int(np.prod(shape))
+    if shape != (32, 8, 12):
+        raise AssertionError(f'9a: latent {shape}')
+    centers = ae.encoder.centers.detach().cpu().numpy()
+    host = syms.cpu().numpy().astype(np.int8)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.time() - t) * 1e3, out
+
+    streams, ms = {}, {}
+    for impl in scan_codec.SCAN_IMPLS:
+        lc = codec_lib.LatentCodec(pc, pc_config, device=dev, impl=impl)
+        enc_ms, res = timed(lambda: lc.encode_batch(host, centers))
+        streams[impl] = [r.bitstream for r in res]
+        ms[impl] = enc_ms
+    ref = streams['direct']
+    if any(streams[i] != ref for i in scan_codec.SCAN_IMPLS):
+        raise AssertionError('9a: the scan codecs wrote different containers')
+    if {codec_lib.stream_impl_id(b) for b in ref} != {codec_lib.IMPL_WAVEFRONT}:
+        raise AssertionError('9a: the scan containers do not carry impl id 7')
+    dec_ms = {}
+    for impl in scan_codec.SCAN_IMPLS:
+        lc = codec_lib.LatentCodec(pc, pc_config, device=dev, impl=impl)
+        dec_ms[impl], dec = timed(lambda: lc.decode_batch(ref, centers, verify=True))
+        if not torch.equal(dec.long(), syms.long()):
+            raise AssertionError(f'9a: {impl} did not decode the shared streams')
+    fw = cuda_codec.fold_weights(pc, ae.encoder.centers.detach())
+    f2, s2 = ck.wavefront_forward(ck.MODE_ENCODE, fw, shape,
+                                  true_syms=syms.reshape(B, n).int().contiguous())
+    kidx = ck.build_schedule(shape).idx_cm
+    want = (scan_codec.cell_tables(f2.long(), kidx, n), scan_codec.cell_tables(s2.long(), kidx, n))
+    for impl in scan_codec.SCAN_IMPLS:
+        f, s_, sched = scan_codec.ScanCoder(pc, pc_config, dev, impl).encode_tables(host, centers)
+        idx = np.where(sched.active, sched.sym_flat, n)
+        got = (scan_codec.cell_tables(f, idx, n), scan_codec.cell_tables(s_, idx, n))
+        bad = int(((got[0] != want[0]) | (got[1] != want[1])).sum().item())
+        if bad:
+            raise AssertionError(f'9a: {impl}: {bad} of {B * n} cells differ from kernel 2\'s tables')
+    lc5 = codec_lib.LatentCodec(pc5, pc5_config, device=dev, impl='direct')
+    enc5_ms, res5 = timed(lambda: lc5.encode_batch(host[:1], centers))
+    dec5_ms, dec5 = timed(lambda: lc5.decode_batch([r.bitstream for r in res5], centers,
+                                                   verify=True))
+    if not torch.equal(dec5.long(), syms[:1].long()):
+        raise AssertionError('9a: direct at K=5 did not round-trip')
+    # direct's K=5 tables against kernel 5's (the planar codec's level
+    # passes) on the card: a wrong tap order, skip index or all-pad constant
+    # would still round-trip, but not match these. The two sum a cell in
+    # different orders (kernel 5 takes the lower planes' taps from cuDNN's
+    # conv2d as bias rows, direct chains every tap), so a logit may differ
+    # by an ulp and a CDF entry flip by 1: 7 of 3072 cells on an H100
+    # (0.23%). A fault of the kinds above moves ~99% of the cells by
+    # thousands (508 of 512 in the CPU test's scratch mutations): the bound
+    # is |delta| <= 2 on at most 1% of the cells.
+    f5, s5, sched5 = scan_codec.ScanCoder(pc5, pc5_config, dev, 'direct').encode_tables(
+        host[:1], centers)
+    coder5 = planar_codec.PlanarCoder(pc5, pc5_config, dev)
+    _, fold5 = coder5._prepare(shape, ae.encoder.centers.detach())
+    kf5, ks5 = coder5.encode_tables(syms[:1].int().contiguous(), fold5)
+    C, H, W = shape
+    pidx = np.asarray(planar.build_planar_schedule(shape, 5).idx_cm, np.int64)
+    kidx5 = np.concatenate([np.where(pidx < H * W, pidx + d * H * W, n) for d in range(C)])
+    idx5 = np.where(sched5.active, sched5.sym_flat, n)
+    got = [scan_codec.cell_tables(t, idx5, n) for t in (f5, s5)]
+    want = [scan_codec.cell_tables(t.long(), kidx5, n) for t in (kf5, ks5)]
+    off = (got[0] != want[0]) | (got[1] != want[1])
+    flips5 = int(off.sum().item())
+    delta5 = max(int((g - w).abs()[off].max().item()) if flips5 else 0
+                 for g, w in zip(got, want))
+    if delta5 > 2 or flips5 > 1e-2 * n:
+        raise AssertionError(f'9a: direct at K=5: {flips5} of {n} cells differ from kernel 5\'s '
+                             f'tables (largest |delta| {delta5})')
+    per = ', '.join(f'{i} {ms[i]:.1f} / {dec_ms[i]:.1f}' for i in scan_codec.SCAN_IMPLS)
+    return (f'trained K=3 model, 64x96 crops of 3 natkodak24 images, latent {shape}, B={B}, '
+            f'on {dev}: direct, cached and ring write byte-identical id-7 containers '
+            f'({sum(len(b) for b in ref)} bytes, {8 * sum(len(b) for b in ref) / (B * 64 * 96):.5f} '
+            f'bpp), each decodes them CRC-verified bit-exact, and their per-cell tables equal '
+            f'kernel 2\'s (wavefront_forward encode) on all {B * n} cells; ms encode / decode '
+            f'(wall, synchronized): {per}; direct at K=5 (seeded pc base, the first crop, '
+            f'{sched5.T} steps of M={sched5.M}): round trip CRC-verified bit-exact, '
+            f'{enc5_ms:.1f} / {dec5_ms:.1f} ms; its per-cell tables against kernel 5\'s on '
+            f'the card (PlanarCoder.encode_tables): {flips5} of {n} cells differ (largest '
+            f'|delta| {delta5}; tol 1% and 2: two summation orders)')
+
+
+def recorded_step(trainer, state, batch):
+    """trainer.train_step, also returning the gradients that the optimizer
+    steps with (after a data-parallel trainer's all-reduce), on the host,
+    keyed 'ae.<name>' / 'pc.<name>', and the step's symbols (this rank's
+    slice) under the key 'symbols'."""
+    grads, step = {}, state.optimizer.step
+    hook = state.ae.register_forward_hook(
+        lambda mod, args, out: grads.__setitem__('symbols', out[0].symbols.detach().cpu()))
+
+    def recording():
+        for part, mod in (('ae', state.ae), ('pc', state.pc)):
+            grads.update({f'{part}.{n}': p.grad.detach().float().cpu().clone()
+                          for n, p in mod.named_parameters() if p.grad is not None})
+        step()
+
+    state.optimizer.step = recording
+    try:
+        state, comps = trainer.train_step(state, batch)
+    finally:
+        state.optimizer.step = step
+        hook.remove()
+    return state, {k: float(v) for k, v in comps.items()}, grads
+
+
+def dp_rank_steps(rank, world, device, init_method, backend, batches):
+    """One rank of phase 9b (in this process at world 1, or spawned): join
+    the group, cvpr/low + cvpr/res_shallow from seed 0, cuDNN's
+    deterministic algorithms, one step on each global batch in turn (padded
+    to a multiple of the world, this rank's slice). Returns per step
+    (comps, the {'ae', 'pc'} state dicts on the host, the averaged
+    gradients)."""
+    import torch
+    from imgcomp_cvpr_tpu_torch.parallel import mesh as mesh_lib
+    from imgcomp_cvpr_tpu_torch.training import trainer as trainer_lib
+    from imgcomp_cvpr_tpu_torch.utils import config as config_lib
+
+    ae_config, _ = config_lib.parse_spec('cvpr/low', 'ae')
+    pc_config, _ = config_lib.parse_spec('cvpr/res_shallow', 'pc')
+    mesh = mesh_lib.init_process_group(rank, world, device, init_method, backend)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        trainer = trainer_lib.Trainer(ae_config, pc_config, mesh=mesh)
+        state = trainer.init_state(0)
+        out = []
+        for batch in batches:
+            shard = mesh_lib.shard_batch(mesh_lib.pad_batch_to_multiple(batch, world), mesh)
+            state, comps, grads = recorded_step(trainer, state, shard)
+            out.append((comps, {k: {n: t.detach().cpu().clone() for n, t in m.state_dict().items()}
+                                for k, m in (('ae', state.ae), ('pc', state.pc))}, grads))
+        return out
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        mesh_lib.destroy_process_group()
+
+
+def dp_training(dev, step_ms6):
+    """Phase 9b: the data-parallel train step at full width (cvpr/low +
+    cvpr/res_shallow, B=30 160x160, phase 6's batch). World size 1 under
+    NCCL: 2 steps against 2 non-parallel steps, cuDNN's deterministic
+    algorithms on both sides, equal bit for bit (loss, comps, symbols,
+    averaged gradients, parameters). Then 2 ranks sharing the card under gloo against 1 rank, one
+    step: the loss to 1e-5 relative, the averaged gradients to twice the
+    distance at which one rank's gradients move when the batch is reversed
+    (a gradient summed instead of averaged is off by 100%), the parameters
+    to the CPU tests' bounds. Returns (launch counts of the
+    world-1 run, text)."""
+    import torch
+    from imgcomp_cvpr_tpu_torch.data import pipeline as pipeline_lib
+    from imgcomp_cvpr_tpu_torch.ops.kernels import build
+    from imgcomp_cvpr_tpu_torch.parallel import mesh as mesh_lib
+    from imgcomp_cvpr_tpu_torch.training import trainer as trainer_lib
+    from imgcomp_cvpr_tpu_torch.utils import config as config_lib
+
+    ae_config, _ = config_lib.parse_spec('cvpr/low', 'ae')
+    pc_config, _ = config_lib.parse_spec('cvpr/res_shallow', 'pc')
+    ip = pipeline_lib.InputPipeline(pipeline_lib.get_dataset('synthetic:64'),
+                                    ae_config.crop_size, TRAIN_BATCH,
+                                    num_preprocess_threads=1, seed=0).start()
+    try:
+        batch = ip.get_batch()               # phase 6's batch
+    finally:
+        ip.stop()
+
+    def params(model):
+        return {f'{k}.{n}': t.float().cpu() for k, m in model.items() for n, t in m.items()}
+
+    def worst(a, b):
+        """Largest |a - b| over a leaf's largest |b|, over the leaves of b."""
+        assert set(a) == set(b)
+        rel = {n: ((a[n] - b[n]).abs().max() / b[n].abs().max().clamp(min=1e-30)).item()
+               for n in b if n != 'symbols'}
+        w = max(rel, key=rel.get)
+        return rel[w], w
+
+    def norms(a, b):
+        """||a - b|| / ||b|| over all gradients, and the range of a leaf's
+        ||a|| / ||b||."""
+        names = [n for n in b if n != 'symbols']
+        diff = sum(((a[n] - b[n]).double() ** 2).sum().item() for n in names) ** 0.5
+        ratio = [(a[n].double().norm() / b[n].double().norm()).item() for n in names
+                 if b[n].abs().max() > 0]
+        return diff / sum((b[n].double() ** 2).sum().item() for n in names) ** 0.5, \
+            min(ratio), max(ratio)
+
+    def equal(a, b):
+        return set(a) == set(b) and all(torch.equal(a[n], b[n]) for n in b)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        trainer = trainer_lib.Trainer(ae_config, pc_config, device=dev)
+        state = trainer.init_state(0)
+        ref = []
+        for _ in range(2):
+            state, comps, grads = recorded_step(trainer, state, batch)
+            ref.append((comps, params({'ae': state.ae.state_dict(), 'pc': state.pc.state_dict()}),
+                        grads))
+        torch.cuda.synchronize()
+        build.reset_launches()
+        world1 = dp_rank_steps(0, 1, str(dev), f'tcp://localhost:{mesh_lib.free_port()}', None,
+                               [batch, batch])
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    d_loss = max(abs(a[0]['total_loss'] - b[0]['total_loss']) / abs(b[0]['total_loss'])
+                 for a, b in zip(world1, ref))
+    d_grad, at_g = max(worst(a[2], b[2]) for a, b in zip(world1, ref))
+    d_par, at = worst(params(world1[-1][1]), ref[-1][1])
+    exact = all(a[0] == b[0] and equal(a[2], b[2]) and equal(params(a[1]), b[1])
+                for a, b in zip(world1, ref))
+    if not exact:
+        raise AssertionError(f'9b: world-1 data-parallel steps differ from phase 6\'s: loss '
+                             f'{d_loss}, gradients {d_grad} at {at_g}, parameters {d_par} at {at}')
+    if launches['quantize'] != 2 or launches['quantize_bwd'] != 2:
+        raise AssertionError(f'9b: launches {launches}')
+
+    # step time: world 1 (in this process) beside the non-parallel step
+    mesh = mesh_lib.init_process_group(0, 1, dev, f'tcp://localhost:{mesh_lib.free_port()}')
+    try:
+        dp = trainer_lib.Trainer(ae_config, pc_config, device=dev, mesh=mesh)
+        st_dp, st = dp.init_state(0), trainer.init_state(0)
+        xb = torch.from_numpy(batch).to(dev)
+        step_ms = {}
+        for name, tr, s_ in (('dp', dp, st_dp), ('plain', trainer, st)):
+            tr.train_step(s_, xb)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            for _ in range(5):
+                tr.train_step(s_, xb)
+            ev[1].record()
+            torch.cuda.synchronize()
+            step_ms[name] = ev[0].elapsed_time(ev[1]) / 5
+    finally:
+        mesh_lib.destroy_process_group()
+
+    # two ranks sharing the card under gloo (deterministic cuDNN in each),
+    # against one rank
+    t = time.time()
+    (comps2, model2, grads2), = mesh_lib.spawn(
+        dp_rank_steps, 2, (2, str(dev), f'tcp://localhost:{mesh_lib.free_port()}', 'gloo',
+                           [batch]))
+    spawn_s = time.time() - t
+    torch.backends.cudnn.deterministic = True
+    try:
+        state, one, grads1 = recorded_step(trainer, trainer.init_state(0), batch)
+        # the control: one rank on the batch in reverse order, the same
+        # global loss summed in another order
+        _, one_r, grads1_r = recorded_step(trainer, trainer.init_state(0), batch[::-1].copy())
+    finally:
+        torch.backends.cudnn.deterministic = False
+    c_loss = abs(one_r['total_loss'] - one['total_loss']) / abs(one['total_loss'])
+    c_grad, at_c = worst(grads1_r, grads1)
+    c_norm, _, _ = norms(grads1_r, grads1)
+    d2_loss = abs(comps2['total_loss'] - one['total_loss']) / abs(one['total_loss'])
+    d2_grad, at2_g = worst(grads2, grads1)
+    d2_norm, r_lo, r_hi = norms(grads2, grads1)
+    half = grads2['symbols']             # rank 0's slice: the first half of the batch
+    sym_flips = int((half != grads1['symbols'][:half.shape[0]]).sum().item())
+    a, b = params(model2), params({'ae': state.ae.state_dict(), 'pc': state.pc.state_dict()})
+    named = {f'ae.{n}' for n, _ in state.ae.named_parameters()} | {
+        f'pc.{n}' for n, _ in state.pc.named_parameters()}
+    if set(grads1) - {'symbols'} != named:
+        raise AssertionError(f'9b: gradients of {len(grads1)} of {len(named)} parameters')
+    # The CPU tests' bounds (tests/test_torch_parallel.py) where they carry
+    # over to full width: every parameter within rtol 2e-2 / atol 5e-4 and a
+    # mean |diff| below 1e-6, here over all parameters together: Adam's
+    # first step turns the reduction-order noise of a near-zero gradient
+    # entry into a move of up to 2 lr the other way, and one such entry in a
+    # 128-entry BatchNorm leaf alone makes that leaf's mean 1.25e-6 (the
+    # entries past 1e-5 are counted). The BatchNorm statistics are float32
+    # sums over 30 x 160 x 160 values a channel in another order (two
+    # halves), whose decoder layers also see any symbol that the encoder's
+    # statistics moved: held to phase 6a's tolerance, 1e-3 of the leaf's
+    # largest entry (the CPU tests' 1e-6 holds at their tiny widths only).
+    # The gradients are held to twice the control's distance: the same
+    # global loss summed in another order (the batch reversed, one rank)
+    # moves them by ~1.4% over all leaves and ~3% at the worst leaf on an
+    # H100 (cancelling sums in the BatchNorm leaves), while a gradient
+    # summed instead of averaged is off by 100% on every leaf. The CPU tests
+    # hold the gradients to 1e-5 at their widths.
+    bad, flips, total, n_el, stat_rel = [], 0, 0.0, 0, 0.0
+    for n in a:
+        d = (a[n] - b[n]).abs()
+        if n in named:
+            total, n_el = total + d.sum().item(), n_el + d.numel()
+            flips += int((d > 1e-5).sum().item())
+            if not torch.all(d <= 5e-4 + 2e-2 * b[n].abs()):
+                bad.append((n, d.max().item()))
+        else:
+            rel = (d.max() / b[n].abs().max().clamp(min=1e-30)).item()
+            stat_rel = max(stat_rel, rel)
+            if rel > 1e-3:
+                bad.append((n, rel))
+    if (d2_loss > 1e-5 or d2_grad > 2 * c_grad or d2_norm > 2 * c_norm or bad
+            or not total / n_el < 1e-6):
+        raise AssertionError(f'9b: 2 gloo ranks vs 1: loss rel {d2_loss}, gradients {d2_grad} '
+                             f'at {at2_g} (control {c_grad}), all together {d2_norm} (control '
+                             f'{c_norm}), a leaf\'s norm ratio {r_lo}-{r_hi}; {sym_flips} of '
+                             f'{half.numel()} symbols of the first half differ; mean |diff| '
+                             f'{total / n_el}, off: {bad[:8]}')
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    return launches, (
+        f'ae cvpr/low + pc cvpr/res_shallow, B={TRAIN_BATCH} {TRAIN_CROP}x{TRAIN_CROP}, phase '
+        f'6\'s batch, seed 0: world size 1 under NCCL, 2 steps vs 2 non-parallel steps '
+        f'(deterministic cuDNN): equal bit for bit (loss, comps, symbols, averaged gradients, '
+        f'parameters); launches {launches}; {smi}: '
+        f'ms a step (CUDA events, 5 steps, default cuDNN) data-parallel world 1 '
+        f'{step_ms["dp"]:.3f}, non-parallel {step_ms["plain"]:.3f} (phase 6b: {step_ms6:.3f}); '
+        f'2 ranks sharing the card under gloo (spawned, {spawn_s:.1f} s) vs 1 rank, one step, '
+        f'deterministic cuDNN: '
+        f'loss rel diff {d2_loss:.3g} (tol 1e-5), {sym_flips} of {half.numel()} symbols of '
+        f'the first half differ, averaged gradients {d2_grad:.3g} of a leaf\'s largest entry '
+        f'at {at2_g}, {d2_norm:.3g} over all leaves together (a leaf\'s norm ratio '
+        f'{r_lo:.5f}-{r_hi:.5f}; tol twice the control\'s: one rank on the batch reversed, '
+        f'{c_grad:.3g} at {at_c} and {c_norm:.3g}, loss rel {c_loss:.3g}), every parameter '
+        f'within rtol 2e-2 / atol '
+        f'5e-4, mean |diff| over all {n_el} parameters {total / n_el:.3g} (tol 1e-6; {flips} '
+        f'entries past 1e-5: Adam\'s first step on near-zero gradients), BatchNorm '
+        f'statistics within {stat_rel:.3g} of a leaf\'s largest entry (tol 1e-3, phase 6a\'s)')
+
+
+def dp_validation(dev, val_info):
+    """Phase 9c: phase 7's sweep (24 natkodak24 images, eval batch 8 a
+    device) with and without real_bpp through EvalModel and LatentCodec
+    given the same card twice: the measures rows equal phase 7's one-device
+    rows and the streams phase 7's bytes; then phase 7's K=5 run (4 images,
+    real_bpp) the same way. Returns (launch counts, text)."""
+    import torch
+    from imgcomp_cvpr_tpu_torch.coding import codec as codec_lib
+    from imgcomp_cvpr_tpu_torch.data import val_images
+    from imgcomp_cvpr_tpu_torch.data.images_iterator import ImagesIterator
+    from imgcomp_cvpr_tpu_torch.eval import validate as validate_lib
+    from imgcomp_cvpr_tpu_torch.eval.val_files import ValidationDirs
+    from imgcomp_cvpr_tpu_torch.ops.kernels import build
+    from imgcomp_cvpr_tpu_torch.training import checkpoint as checkpoint_lib
+    from imgcomp_cvpr_tpu_torch.utils import logdir as logdir_lib
+
+    devices = [dev, dev]
+    paths, name = val_images.get_image_paths(NATKODAK)
+    log = open(os.path.join(VAL_ROOT, 'validate_dp.log'), 'w')
+    launches = {}
+    out = {}
+    for key, log_dir, n_img in (('k3', val_info['log_dir'], VAL_IMAGES),
+                                ('k5', val_info['log5'], 4)):
+        ckpt_dir = logdir_lib.ckpt_dir_for_log_dir(log_dir)
+        em = validate_lib.build_eval_model_from_log_dir(log_dir, device=devices)
+        em.set_params(checkpoint_lib.Saver(ckpt_dir).restore(9000)[0]['model'])
+        lc = codec_lib.LatentCodec(em.pc, em.pc_config, device=em.devices)
+        streams = []
+
+        def recording(syms, centers, encode=lc.encode_batch):
+            res = encode(syms, centers)
+            streams.extend(r.bitstream for r in res)
+            return res
+
+        lc.encode_batch = recording
+        for real_bpp in ((False, True) if key == 'k3' else (True,)):
+            streams.clear()
+            flags = validate_lib.OutputFlags(ckpt_step=-1, real_bpp=real_bpp,
+                                             eval_batch=VAL_BATCH)
+            torch.cuda.synchronize()
+            build.reset_launches()
+            t = time.time()
+            with contextlib.redirect_stdout(log):
+                vd = ValidationDirs(ckpt_dir, os.path.join(VAL_ROOT, 'dp'), name, reset=True)
+                validate_lib.validate(vd, ImagesIterator(paths[:n_img], name), flags,
+                                      eval_model=em, codec=lc)
+            torch.cuda.synchronize()
+            out[key, real_bpp] = time.time() - t
+            if real_bpp:
+                for k, v in build.LAUNCHES.items():
+                    launches[k] = launches.get(k, 0) + v
+            rows = open(os.path.join(vd.out_dir, 'measures.csv')).read().splitlines()
+            want = val_info['rows'] if key == 'k3' else val_info['rows_k5']
+            if rows != want:
+                raise AssertionError(f'9c: {key} real_bpp={real_bpp}: the rows on two devices '
+                                     'differ from phase 7\'s on one')
+        if key == 'k3' and streams != val_info['streams'] or len(streams) != n_img:
+            raise AssertionError(f'9c: the {key} streams on two devices differ from phase 7\'s')
+    log.close()
+    for k in ('quantize', 'wavefront_forward_encode', 'wavefront_forward_decode', 'rans_reverse',
+              'plane_forward_encode', 'plane_forward_decode', 'plane_reverse'):
+        if launches.get(k, 0) < 1:
+            raise AssertionError(f'9c: {k} was not launched in the data-parallel real-bpp runs')
+    return launches, (
+        f'EvalModel and LatentCodec on [{dev}, {dev}] (eval batch {VAL_BATCH} a device, '
+        f'buckets of {2 * VAL_BATCH}): phase 7\'s {VAL_IMAGES}-image sweep without and with '
+        f'real_bpp gives phase 7\'s measures rows exactly ({out["k3", False]:.2f} s / '
+        f'{out["k3", True]:.2f} s wall) and, with real_bpp, its {VAL_IMAGES} streams byte for '
+        f'byte; the K=5 run (4 images, real_bpp) its rows ({out["k5", True]:.2f} s); launches '
+        f'in the real-bpp runs { {k: v for k, v in launches.items() if v} }')
+
+
+def parallel_path(dev, ae, pc, pc_config, pc5, pc5_config, val_info, step_ms6):
+    """Phase 9: the scan codecs and data parallelism. Returns the launch
+    counts of the data-parallel runs (9b's train steps, 9c's validation),
+    each read just after its run."""
+    t_phase = time.time()
+    print(f'[9a scan codecs] {scan_twins(dev, ae, pc, pc_config, pc5, pc5_config)}', flush=True)
+    train_launches, text = dp_training(dev, step_ms6)
+    print(f'[9b data-parallel training] {text}', flush=True)
+    val_launches, text = dp_validation(dev, val_info)
+    print(f'[9c data-parallel validation] {text}', flush=True)
+    print(f'[9 phase time] {time.time() - t_phase:.1f} s', flush=True)
+    return {'train': train_launches, 'val': val_launches}
 
 
 def main_path(ae, codec, x, centers):
@@ -1991,13 +2456,16 @@ def main(argv):
     # ---- phase 4b: context models past shared memory (kf = 64) -----------
     launches['4b'] = wide_context_models(dev, ae, ae_config, x, centers, fw)
 
-    launches[6] = training_path(dev, rows)
+    launches[6], step_ms6 = training_path(dev, rows)
 
     # ---- phase 7: the validation path -------------------------------------
     launches[7], val_info = validation_path(dev)
 
     # ---- phase 8: the tools ------------------------------------------------
     launches[8] = tools_path(dev, val_info)
+
+    # ---- phase 9: the scan codecs, data-parallel training and validation --
+    launches[9] = parallel_path(dev, ae, pc, pc_config, pc5, pc5_config, val_info, step_ms6)
 
     kernels = []
     for phase, name in ((4, 'quantize'), (6, 'quantize_train'), (6, 'quantize_bwd'),
@@ -2023,6 +2491,11 @@ def main(argv):
             kernels[-1]['launches_validation'] = launches[7][name]
         if name not in ('quantize_train', 'quantize_bwd'):      # the tools' run (phase 8)
             kernels[-1]['launches_tools'] = launches[8][name]
+        # phase 9's data-parallel runs: the train steps (kernels 1 and 7), the
+        # validation (kernels 1, 2, 3, 5, 6)
+        kernels[-1]['launches_parallel'] = (
+            launches[9]['train']['quantize' if name == 'quantize_train' else name]
+            if name in ('quantize_train', 'quantize_bwd') else launches[9]['val'][name])
         if 'quantizer' in r:    # kernels 1 and 7: device time beside the host's
             q = r['quantizer']
             kernels[-1].update(device_ms=q['device_ms'], graph_ms=q['graph_ms'],

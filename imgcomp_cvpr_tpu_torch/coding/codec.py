@@ -2,11 +2,14 @@
 container half of imgcomp_cvpr_tpu/coding/codec.py:41-146,586-1041).
 
 The container bytes are the JAX package's, byte for byte, for the same
-inputs and impl id; the port writes its own impl ids, IMPL_CUDA = 5 (the
-K=3 wavefront codec) and IMPL_CUDA_PLANAR = 6 (the planar codec; ids 5-7
-were free), since logits computed on a GPU are not bitwise those of a TPU
-and a stream decodes only through the implementation that encoded it.
-Only container v11 is parsed (the frozen v8-v10 branches are not ported).
+inputs and impl id; the port writes its own impl ids, since logits computed
+on a GPU are not bitwise those of a TPU and a stream decodes only through
+the implementation that encoded it: IMPL_CUDA = 5 (the K=3 wavefront codec),
+IMPL_CUDA_PLANAR = 6 (the planar codec) and IMPL_WAVEFRONT = 7 (the scan
+codecs direct / cached / ring, which write the same bytes; the 3-bit field
+has no fourth free id, and a matmul's summation order is not fixed across
+shapes, so three matmul-based scans could not have shared one). Only
+container v11 is parsed (the frozen v8-v10 branches are not ported).
 """
 
 from __future__ import annotations
@@ -20,12 +23,17 @@ import torch
 MAGIC = b'\xa7'
 VERSION = 11
 
+# Ids 0-4 are the JAX package's (named as it names them; the port decodes
+# none of them); 5-7 are the port's.
 IMPL_DIRECT, IMPL_CACHED, IMPL_RING, IMPL_PALLAS, IMPL_PLANAR = 0, 1, 2, 3, 4
-IMPL_CUDA, IMPL_CUDA_PLANAR = 5, 6
-IMPL_IDS = {'direct': IMPL_DIRECT, 'cached': IMPL_CACHED, 'ring': IMPL_RING,
-            'pallas': IMPL_PALLAS, 'planar': IMPL_PLANAR, 'cuda': IMPL_CUDA,
-            'cuda_planar': IMPL_CUDA_PLANAR}
-IMPL_NAMES = {v: k for k, v in IMPL_IDS.items()}
+IMPL_CUDA, IMPL_CUDA_PLANAR, IMPL_WAVEFRONT = 5, 6, 7
+IMPL_NAMES = {IMPL_DIRECT: 'direct', IMPL_CACHED: 'cached', IMPL_RING: 'ring',
+              IMPL_PALLAS: 'pallas', IMPL_PLANAR: 'planar', IMPL_CUDA: 'cuda',
+              IMPL_CUDA_PLANAR: 'cuda_planar', IMPL_WAVEFRONT: 'wavefront'}
+# The id each of the port's impls writes.
+IMPL_IDS = {'cuda': IMPL_CUDA, 'cuda_planar': IMPL_CUDA_PLANAR, 'direct': IMPL_WAVEFRONT,
+            'cached': IMPL_WAVEFRONT, 'ring': IMPL_WAVEFRONT}
+IMPLS = ('auto',) + tuple(IMPL_IDS)
 
 TAIL_MIN_LANE_SYMBOLS = 256   # tail packing only for lanes this long (tiny
                               # latents would pay more for the k-table than
@@ -363,35 +371,89 @@ def stream_prec(data: bytes) -> int:
 # Facade
 # ---------------------------------------------------------------------------
 
-class LatentCodec:
-    """Entropy codec for one (pc_config, num_centers) context model. Encodes
-    kernel_size 3 with the K=3 wavefront codec (coding/cuda_codec.py, impl
-    'cuda', id 5) and any other kernel_size with the planar codec
-    (coding/planar_codec.py, impl 'cuda_planar', id 6); decode routes each
-    stream on its container's impl id."""
+class MeshHandle(NamedTuple):
+    """A batch submitted over several devices: (device, handle) per piece;
+    the results past n_real are pad copies."""
+    pieces: Tuple
+    n_real: int
 
-    def __init__(self, pc, pc_config, device='cuda'):
+
+def _split_padded(items, n: int):
+    """Pad a batch (array, tensor or list) to a multiple of n by repeating
+    its last element, and split it into n equal pieces."""
+    pad = (n - len(items) % n) % n
+    if isinstance(items, torch.Tensor):
+        items = torch.cat([items] + [items[-1:]] * pad)
+    elif isinstance(items, np.ndarray):
+        items = np.concatenate([items] + [items[-1:]] * pad)
+    else:
+        items = list(items) + [items[-1]] * pad
+    size = len(items) // n
+    return [items[i * size:(i + 1) * size] for i in range(n)]
+
+
+class LatentCodec:
+    """Entropy codec for one (pc_config, num_centers) context model.
+
+    ``impl``: 'auto' codes kernel_size 3 with the K=3 wavefront codec
+    ('cuda', coding/cuda_codec.py, id 5) and any other kernel_size with the
+    planar codec ('cuda_planar', coding/planar_codec.py, id 6); 'direct',
+    'cached' and 'ring' are the scan codecs (coding/scan_codec.py, id 7;
+    'cached' and 'ring' become 'cuda_planar' off K=3, as does 'cuda').
+    Decode routes each stream on its container's impl id: id 7 goes to this
+    codec's own scan when it has one, else to 'direct' (the quickest of the
+    three on a card).
+
+    ``device`` is one device or a list: with several, a batch is padded to
+    a multiple of their count by repeating its last image, split into equal
+    pieces, each coded on its device (one coder each), and the pad results
+    are dropped; the streams are those of the unsplit batch."""
+
+    def __init__(self, pc, pc_config, device='cuda', impl: str = 'auto'):
         from .. import resolve_device
+        if impl not in IMPLS:
+            raise ValueError(f'unknown impl {impl!r}; expected one of {IMPLS}')
         self.pc, self.pc_config = pc, pc_config
-        self.device = resolve_device(device)
-        self.impl_id = IMPL_CUDA if pc_config.kernel_size == 3 else IMPL_CUDA_PLANAR
+        devices = device if isinstance(device, (list, tuple)) else [device]
+        self.devices = [resolve_device(d) for d in devices]
+        self.device = self.devices[0]
+        k3 = pc_config.kernel_size == 3
+        if impl == 'auto':
+            impl = 'cuda' if k3 else 'cuda_planar'
+        elif impl in ('cuda', 'cached', 'ring') and not k3:
+            impl = 'cuda_planar'
+        self.impl = impl
+        self.impl_id = IMPL_IDS[impl]
         self._coders = {}
 
-    def coder(self, impl_id: int):
-        """The coder of a port impl id (5 or 6); raises for any other."""
-        if impl_id not in self._coders:
-            if impl_id == IMPL_CUDA:
+    def coder(self, impl_id: int, device=None):
+        """The coder of a port impl id (5, 6 or 7) on ``device`` (default:
+        the first); raises for any other id."""
+        from .scan_codec import SCAN_IMPLS
+        if impl_id == IMPL_CUDA:
+            name = 'cuda'
+        elif impl_id == IMPL_CUDA_PLANAR:
+            name = 'cuda_planar'
+        elif impl_id == IMPL_WAVEFRONT:
+            name = self.impl if self.impl in SCAN_IMPLS else 'direct'
+        else:
+            raise ValueError(
+                f'stream impl id {impl_id} ({IMPL_NAMES.get(impl_id, "?")}) is not '
+                'decodable by the port (impl cuda, id 5, cuda_planar, id 6, or the '
+                'scans direct / cached / ring, id 7)')
+        dev = self.device if device is None else device
+        key = (name, str(dev))
+        if key not in self._coders:
+            if name == 'cuda':
                 from .cuda_codec import CudaCoder
-                self._coders[impl_id] = CudaCoder(self.pc, self.pc_config, self.device)
-            elif impl_id == IMPL_CUDA_PLANAR:
+                self._coders[key] = CudaCoder(self.pc, self.pc_config, dev)
+            elif name == 'cuda_planar':
                 from .planar_codec import PlanarCoder
-                self._coders[impl_id] = PlanarCoder(self.pc, self.pc_config, self.device)
+                self._coders[key] = PlanarCoder(self.pc, self.pc_config, dev)
             else:
-                raise ValueError(
-                    f'stream impl id {impl_id} ({IMPL_NAMES.get(impl_id, "?")}) '
-                    'is not decodable by the port (impl cuda, id 5, or '
-                    'cuda_planar, id 6)')
-        return self._coders[impl_id]
+                from .scan_codec import ScanCoder
+                self._coders[key] = ScanCoder(self.pc, self.pc_config, dev, name)
+        return self._coders[key]
 
     def encode_batch_submit(self, symbols, centers):
         """Enqueue a batch's encode on the current stream and return a handle
@@ -400,10 +462,18 @@ class LatentCodec:
         (finish raises), anything else on the host (raises here). centers
         (L,): a host array keeps the submit free of any wait; a CUDA tensor
         costs one read of its values."""
-        return self.coder(self.impl_id).encode_batch_submit(symbols, centers)
+        if len(self.devices) == 1:
+            return self.coder(self.impl_id).encode_batch_submit(symbols, centers)
+        pieces = _split_padded(symbols, len(self.devices))
+        return MeshHandle(tuple((d, self.coder(self.impl_id, d).encode_batch_submit(p, centers))
+                                for p, d in zip(pieces, self.devices)), len(symbols))
 
     def encode_batch_finish(self, handle) -> Tuple[EncodeResult, ...]:
-        """Wait for that batch's event only, then serialize its streams."""
+        """Wait for that batch's events only, then serialize its streams."""
+        if isinstance(handle, MeshHandle):
+            out = [r for d, h in handle.pieces
+                   for r in self.coder(h.impl_id, d).encode_batch_finish(h)]
+            return tuple(out[:handle.n_real])
         return self.coder(handle.impl_id).encode_batch_finish(handle)
 
     def encode_batch(self, symbols, centers) -> Tuple[EncodeResult, ...]:
@@ -416,15 +486,25 @@ class LatentCodec:
         ids = {stream_impl_id(bs) for bs in bitstreams}
         if len(ids) != 1:
             raise ValueError(f'mixed impl ids {sorted(ids)} in one decode batch')
-        return self.coder(ids.pop()).decode_batch_submit(bitstreams, centers)
+        impl_id = ids.pop()
+        if len(self.devices) == 1:
+            return self.coder(impl_id).decode_batch_submit(bitstreams, centers)
+        pieces = _split_padded(list(bitstreams), len(self.devices))
+        return MeshHandle(tuple((d, self.coder(impl_id, d).decode_batch_submit(p, centers))
+                                for p, d in zip(pieces, self.devices)), len(bitstreams))
 
     def decode_batch_finish(self, handle, verify: bool = True, device_out: bool = True):
         """-> (B, C, H, W) int32 symbols. device_out=True (the port's
-        default) returns the tensor on the codec's device; device_out=False
-        returns what the reference returns, a host np.int32 array. With
-        verify, waits for the batch's event and raises unless every image's
-        device-computed checksum matches its container's."""
+        default) returns the tensor on the codec's (first) device;
+        device_out=False returns what the reference returns, a host np.int32
+        array. With verify, waits for the batch's events and raises unless
+        every image's device-computed checksum matches its container's."""
         from .cuda_codec import finish_decode
+        if isinstance(handle, MeshHandle):
+            parts = [finish_decode(h, verify, device_out) for _, h in handle.pieces]
+            if device_out:
+                return torch.cat([p.to(self.device) for p in parts])[:handle.n_real]
+            return np.concatenate(parts)[:handle.n_real]
         return finish_decode(handle, verify, device_out)
 
     def decode_batch(self, bitstreams, centers, verify: bool = True, device_out: bool = True):

@@ -76,9 +76,9 @@ def fold_weights(pc: pc_lib.ProbClassifier, centers: torch.Tensor
     net = pc.net
     dev = centers.device
     convs = (net.conv0, net.res1.conv1, net.res1.conv2, net.conv_out)
-    ws = [_taps(c.weight.detach().float(), first=(i == 0)).contiguous()
+    ws = [_taps(c.weight.detach().float(), first=(i == 0)).to(dev).contiguous()
           for i, c in enumerate(convs)]
-    bs = [c.bias.detach().float().contiguous() for c in convs]
+    bs = [c.bias.detach().float().to(dev).contiguous() for c in convs]
     pad = float(pc_lib.auto_pad_value(pc.config, centers, pc))
     k1, k2, k3 = pad_constants(pc, pad)
     return ck.FoldedWeights(
@@ -292,7 +292,7 @@ class ParsedBatch(NamedTuple):
 
 def parse_batch(bitstreams: Sequence[bytes], cap_of, totals_of) -> ParsedBatch:
     """Parse container v11 streams of one latent shape: cap_of(shape) is the
-    word capacity, totals_of(shape) the (R,) active symbols per lane, so
+    word capacity, totals_of(shape) the (r,) active symbols per lane, so
     a tail-packed lane has thresh = total - k (no pull in its last k)."""
     parsed = [codec_lib.deserialize_stream(bs) for bs in bitstreams]
     if {codec_lib.stream_prec(bs) for bs in bitstreams} != {0}:
@@ -301,12 +301,13 @@ def parse_batch(bitstreams: Sequence[bytes], cap_of, totals_of) -> ParsedBatch:
     if any(p[0] != latent_shape for p in parsed):
         raise ValueError('mixed latent shapes in one decode batch')
     b, cap, totals = len(parsed), cap_of(latent_shape), totals_of(latent_shape)
+    r = len(totals)
     packed = np.zeros((b, max([1] + [len(p[1]) for p in parsed])), np.int32)
-    states = np.zeros((b, ck.R), np.uint32)
-    thresh = np.full((b, ck.R), _NO_THRESH, np.int32)
+    states = np.zeros((b, r), np.uint32)
+    thresh = np.full((b, r), _NO_THRESH, np.int32)
     for i, (_, words, st, _crc, k) in enumerate(parsed):
-        if len(st) != ck.R:
-            raise ValueError(f'stream has {len(st)} lanes, expected {ck.R}')
+        if len(st) != r:
+            raise ValueError(f'stream has {len(st)} lanes, expected {r}')
         if len(words) > cap:
             raise ValueError(f'stream length {len(words)} exceeds the word cap {cap}')
         packed[i, :len(words)] = words

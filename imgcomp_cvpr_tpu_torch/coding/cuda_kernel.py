@@ -324,30 +324,53 @@ def logits_to_cdf(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 MODE_DECODE, MODE_ENCODE = 0, 1
 
 
-_ACC_BLOCK_FLOATS = 1 << 22   # products a block of _layer_step's host chain
+_ACC_BLOCK_FLOATS = 1 << 22   # products a block of layer_sum's host chain
+_SUM_CHUNK_FLOATS = 1 << 26   # products a chunk of layer_sum on a card
+
+
+def layer_sum(x: torch.Tensor, wf: torch.Tensor, b) -> torch.Tensor:
+    """The port's one layer sum: x (..., rows) gathered inputs in (tap, input
+    channel) order, wf (rows, cout) -> (..., cout) pre-activation, summed
+    over the rows in order with one rounded multiply and one rounded add at
+    a time, then the bias (the order of kernels 2 and 5). On the host, the
+    rounded products of a block of rows, the running sum added to its first,
+    then numpy's add.accumulate, which adds in order in float32. On a card,
+    the rounded products, then torch.cumsum over the rows, which CUDA scans
+    in order for a dimension that is not the innermost one. ``b`` broadcasts
+    against the result."""
+    rows, cout = wf.shape
+    x2 = x.reshape(-1, rows)
+    if x.device.type == 'cpu':
+        xn, wn = x2.detach().numpy(), wf.detach().numpy()
+        acc = np.zeros((xn.shape[0], cout), np.float32)
+        blk = max(1, _ACC_BLOCK_FLOATS // max(1, acc.size))
+        for j in range(0, rows, blk):
+            p = xn[:, j:j + blk, None] * wn[j:j + blk]
+            p[:, 0, :] += acc
+            acc = np.add.accumulate(p, axis=1)[:, -1, :]
+        out = torch.from_numpy(np.ascontiguousarray(acc))
+    else:
+        step = max(1, _SUM_CHUNK_FLOATS // (rows * cout))
+        parts = [torch.cumsum(x2[a:a + step, :, None] * wf, 1)[:, -1]
+                 for a in range(0, x2.shape[0], step)]
+        out = parts[0] if len(parts) == 1 else torch.cat(parts)
+    return out.reshape(*x.shape[:-1], cout) + b
 
 
 def _layer_step(src: torch.Tensor, taps: torch.Tensor, w: torch.Tensor,
                 b: torch.Tensor) -> torch.Tensor:
     """src (B, G+1, cin), taps (nc, ntaps) -> (B, nc, cout) pre-activation,
-    accumulated in the kernel's order: over (tap, input channel) one
-    rounded multiply and one rounded add at a time, then the bias."""
+    accumulated in the kernel's order (layer_sum). On a card this plain
+    version keeps its loop over the (tap, channel) rows, one launch each:
+    the same bits as layer_sum's cumsum, and the time that PERF.md's kernel
+    table records as kernels 2 and 5's plain versions."""
     x = src[:, taps.long()]                                # (B, nc, ntaps, cin)
     x = x.reshape(x.shape[0], x.shape[1], taps.shape[1] * src.shape[2])   # nc may be 0
     wf = w.reshape(-1, w.shape[-1])
+    if x.device.type == 'cpu':
+        return layer_sum(x, wf, b)
     acc = torch.zeros(x.shape[0], x.shape[1], wf.shape[1], dtype=x.dtype,
                       device=x.device)
-    if x.device.type == 'cpu':
-        # The same chain on the host in blocks of (tap, channel) rows: the
-        # rounded products of a block, the running sum added to its first,
-        # then numpy's add.accumulate, which adds in order in float32.
-        xn, wn, accn = x.detach().numpy(), wf.detach().numpy(), acc.numpy()
-        rows = max(1, _ACC_BLOCK_FLOATS // max(1, accn.size))
-        for j in range(0, wn.shape[0], rows):
-            p = xn[..., j:j + rows, None] * wn[j:j + rows]
-            p[..., 0, :] += accn
-            accn = np.add.accumulate(p, axis=-2)[..., -1, :]
-        return torch.from_numpy(np.ascontiguousarray(accn)) + b
     for j in range(wf.shape[0]):
         acc = acc + x[..., j, None] * wf[j]
     return acc + b

@@ -66,10 +66,10 @@ def fold_planar(pc: pc_lib.ProbClassifier, centers: torch.Tensor) -> PlanarFold:
         w = conv.weight.detach().float()                 # (cout, cin, kd, K, K)
         cout, cin = w.shape[:2]
         tops.append(torch.stack([w[:, :, kd - 1, dy, dx].t()
-                                 for dy, dx in planar.unmasked_taps(K, i == 0)]).contiguous())
+                                 for dy, dx in planar.unmasked_taps(K, i == 0)]).to(dev).contiguous())
         lows.append(w[:, :, :kd - 1].permute(0, 2, 1, 3, 4)
-                    .reshape(cout, (kd - 1) * cin, K, K).contiguous())
-        bs.append(conv.bias.detach().float().contiguous())
+                    .reshape(cout, (kd - 1) * cin, K, K).to(dev).contiguous())
+        bs.append(conv.bias.detach().float().to(dev).contiguous())
     pad = float(pc_lib.auto_pad_value(pc.config, centers, pc))
     consts = tuple(k.float().to(dev) for k in cuda_codec.pad_constants(pc, pad))
     top = pk.PlaneWeights(*tops, torch.full((1,), pad, dtype=torch.float32, device=dev),

@@ -84,11 +84,15 @@ def scalar_decode(words: List[int], state: int, freqs: np.ndarray,
 
 
 def encode_reverse(sym_sel_freq: np.ndarray, sym_sel_start: np.ndarray,
-                   active: np.ndarray, x0: int = RANS_L
+                   active: np.ndarray, x0: int = RANS_L, native: bool = True
                    ) -> Tuple[List[np.ndarray], np.ndarray, np.ndarray]:
-    """Per-lane reverse encode of (T, M) selected tables (numpy): returns
-    (per-lane word arrays in decode-read order, final states (M,) uint32,
-    warmup counts k (M,) int32)."""
+    """Per-lane reverse encode of (T, M) selected tables: returns (per-lane
+    word arrays in decode-read order, final states (M,) uint32, warmup
+    counts k (M,) int32). ``native`` runs the g++-built runtime
+    (coding/native/rans.cpp; raises when it cannot be built), else the numpy
+    loop, its plain version: the same bytes."""
+    if native:
+        return _encode_reverse_native(sym_sel_freq, sym_sel_start, active, x0)
     T, M = sym_sel_freq.shape
     x = np.full(M, x0, np.uint64)
     k = np.zeros(M, np.int32)
@@ -105,6 +109,31 @@ def encode_reverse(sym_sel_freq: np.ndarray, sym_sel_start: np.ndarray,
         x = np.where(a, ((x // f) << SCALE_BITS) + (x % f) + start, x)
     return ([np.asarray(e[::-1], np.uint32) for e in emitted],
             x.astype(np.uint32), k)
+
+
+def _encode_reverse_native(sym_sel_freq, sym_sel_start, active, x0):
+    import ctypes
+    from .native import build as native_build
+    lib = native_build.load()
+    T, M = sym_sel_freq.shape
+    freqs = np.ascontiguousarray(sym_sel_freq, np.uint32)
+    starts = np.ascontiguousarray(sym_sel_start, np.uint32)
+    act = np.ascontiguousarray(active, np.uint8)
+    out_words = np.zeros((M, T), np.uint16)
+    out_lens = np.zeros((M,), np.uint32)
+    out_states = np.zeros((M,), np.uint32)
+    out_k = np.zeros((M,), np.int32)
+
+    def p(a, t):
+        return a.ctypes.data_as(ctypes.POINTER(t))
+
+    lib.rans_encode_reverse(
+        T, M, p(freqs, ctypes.c_uint32), p(starts, ctypes.c_uint32),
+        p(act, ctypes.c_uint8), x0, p(out_words, ctypes.c_uint16),
+        p(out_lens, ctypes.c_uint32), p(out_states, ctypes.c_uint32),
+        p(out_k, ctypes.c_int32))
+    streams = [out_words[j, :out_lens[j]].astype(np.uint32) for j in range(M)]
+    return streams, out_states, out_k
 
 
 # ---------------------------------------------------------------------------
@@ -162,3 +191,46 @@ def encode_reverse_step_interleaved(states, gw, kwarm, freq, start, active,
     xn = ((states // f) << SCALE_BITS) + (states % f) + start
     states = torch.where(active, xn, states)
     return states, gw + total, kwarm
+
+
+# ---------------------------------------------------------------------------
+# Interleaved reverse encode over a (T, M) wavefront schedule
+# ---------------------------------------------------------------------------
+
+R_LANES = 64    # lanes of the scan codecs: a step's M positions split into
+                # M / R_LANES sub-iterations, or one of M lanes when M < 64
+                # (the rule of the JAX package's XLA scans; wavefront.py pads
+                # M > 64 to a multiple of 64)
+
+
+def lanes(M: int) -> int:
+    """Persistent rANS lanes of a schedule with M positions a step."""
+    return R_LANES if M >= R_LANES else M
+
+
+def encode_reverse_scan_interleaved(freq_sel: torch.Tensor, start_sel: torch.Tensor,
+                                    active: torch.Tensor, x0: int = RANS_L):
+    """Reverse interleaved encode of a batch over (T, M) tables, matching
+    decode_step_interleaved sub-iteration by sub-iteration (the JAX
+    package's encode_reverse_scan_interleaved, vmapped over the batch).
+
+    freq_sel / start_sel (B, T, M) int, active (T, M) bool, all on one
+    device. Returns (words (B, T*M) int64 in emission order, n_words (B,),
+    states (B, r) int64 holding uint32 values, k (B, r) warmup counts; 0
+    for x0 = RANS_L); image b's decode-order stream is
+    words[b, :n_words[b]] reversed."""
+    B, T, m = freq_sel.shape
+    r = lanes(m)
+    dev = freq_sel.device
+    states = torch.full((B, r), x0, dtype=torch.long, device=dev)
+    gw = torch.zeros(B, dtype=torch.long, device=dev)
+    kwarm = torch.zeros(B, r, dtype=torch.long, device=dev)
+    words = torch.zeros(B, T * m, dtype=torch.long, device=dev)
+    f_all, s_all = freq_sel.long(), start_sel.long()
+    for t in range(T - 1, -1, -1):
+        for si in range(m // r - 1, -1, -1):
+            sl = slice(si * r, (si + 1) * r)
+            states, gw, kwarm = encode_reverse_step_interleaved(
+                states, gw, kwarm, f_all[:, t, sl], s_all[:, t, sl],
+                active[t, sl].expand(B, r), words, count_warmup=True)
+    return words, gw, states, kwarm

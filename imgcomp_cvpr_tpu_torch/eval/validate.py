@@ -22,6 +22,15 @@ A pass's steps run in ``torch.profiler.record_function`` ranges named
 ``val/<step>`` (upload, ae_encode, ae_decode, bitcost, msssim, psnr,
 to_host), so a profiler trace of ``fetch_many`` splits its device time by
 step.
+
+Data parallelism (the JAX package's mesh path, validate.py:115-127): an
+EvalModel given a list of devices holds one copy of the model on each, pads
+a batch to a multiple of their count by repeating its last image, runs one
+equal piece on each device (all enqueued before any is read back) and drops
+the pad rows; the real-bpp codec splits its batches over the same devices
+(coding/codec.py). ``eval_batch`` is then the batch of each device: a bucket
+holds eval_batch x devices images, so every device pass has the shape of a
+one-device pass, and each image's results are those of a one-device run.
 """
 
 from __future__ import annotations
@@ -61,25 +70,33 @@ class OutputFlags:
 
 class EvalModel:
     """Per-image metrics of a fixed (ae, pc) config pair, on ``device``
-    (raises for 'cuda' with no card)."""
+    (raises for 'cuda' with no card), or on each device of a list (data
+    parallel; see the module docstring). ``ae`` / ``pc`` are the copy on the
+    first device."""
 
     def __init__(self, ae_config, pc_config, device='cuda'):
         self.ae_config = ae_config
         self.pc_config = pc_config
-        self.device = resolve_device(device)
-        self.ae = ae_lib.get_network_cls(ae_config)(ae_config, device=self.device)
-        self.pc = pc_lib.ProbClassifier(pc_config, ae_config.num_centers,
-                                        device=self.device)
+        devices = device if isinstance(device, (list, tuple)) else [device]
+        self.devices = [resolve_device(d) for d in devices]
+        self.device = self.devices[0]
+        self._replicas = [
+            (ae_lib.get_network_cls(ae_config)(ae_config, device=d),
+             pc_lib.ProbClassifier(pc_config, ae_config.num_centers, device=d))
+            for d in self.devices]
+        self.ae, self.pc = self._replicas[0]
 
     def set_params(self, model: Dict) -> None:
         """``model`` is {'ae': state dict, 'pc': state dict}: the 'model'
         subtree of the checkpoints that training writes
         (TrainState.state_dict())."""
-        self.ae.load_state_dict(model['ae'], strict=True)
-        self.pc.load_state_dict(model['pc'], strict=True)
+        for ae, pc in self._replicas:
+            ae.load_state_dict(model['ae'], strict=True)
+            pc.load_state_dict(model['pc'], strict=True)
 
     @torch.no_grad()
-    def _fetch(self, x_uint8: torch.Tensor, pad_info) -> Dict[str, torch.Tensor]:
+    def _fetch(self, replica, x_uint8: torch.Tensor, pad_info) -> Dict[str, torch.Tensor]:
+        ae, pc = replica
         hp_lo, wp_lo, oh, ow = pad_info
         x = x_uint8.to(torch.float32)                 # (B, H, W, 3) padded frame
         # Metrics and saved outputs on the unpadded frame; bpp over its
@@ -88,14 +105,14 @@ class EvalModel:
         crop = (slice(None), slice(hp_lo, hp_lo + oh), slice(wp_lo, wp_lo + ow))
         with deterministic_cudnn():
             with record_function('val/ae_encode'):
-                enc = self.ae.encode(x)
+                enc = ae.encode(x)
             with record_function('val/ae_decode'):
-                x_out = self.ae.decode(enc.qhard)
-            centers = self.ae.encoder.centers
+                x_out = ae.decode(enc.qhard)
+            centers = ae.encoder.centers
             # bitcost from qbar at eval (ref: val.py:88)
             with record_function('val/bitcost'):
-                bc = self.pc.bitcost(enc.qbar, enc.symbols,
-                                     pc_lib.auto_pad_value(self.pc_config, centers, self.pc))
+                bc = pc.bitcost(enc.qbar, enc.symbols,
+                                pc_lib.auto_pad_value(self.pc_config, centers, pc))
             xc = x[crop]
             oc_uint8 = x_out.to(torch.uint8)[crop]
             oc = oc_uint8.to(torch.float32)
@@ -120,20 +137,26 @@ class EvalModel:
         symbols of the padded frame) and 'img_out' (HWC uint8). pad_info =
         (hp_lo, wp_lo, orig_h, orig_w) crops metrics and outputs to the
         unpadded frame (None: the whole frame). pad_batch_to pads the batch
-        by repeating its last image; the pad results are dropped."""
+        by repeating its last image, and so does a list of devices, to a
+        multiple of their count; the pad results are dropped."""
         n_real = len(imgs_hwc_uint8)
         batch = np.stack(imgs_hwc_uint8)
-        if pad_batch_to > n_real:
-            batch = np.concatenate(
-                [batch, np.repeat(batch[-1:], pad_batch_to - n_real, axis=0)])
+        n = max(n_real, pad_batch_to)
+        n = -(-n // len(self.devices)) * len(self.devices)
+        if n > n_real:
+            batch = np.concatenate([batch, np.repeat(batch[-1:], n - n_real, axis=0)])
         h, w = batch.shape[1:3]
         if pad_info is None:
             pad_info = (0, 0, h, w)
-        with record_function('val/upload'):
-            x = torch.from_numpy(batch).to(self.device)
-        out = self._fetch(x, tuple(pad_info))
+        per = n // len(self.devices)
+        outs = []
+        for i, (dev, replica) in enumerate(zip(self.devices, self._replicas)):
+            with record_function('val/upload'):
+                x = torch.from_numpy(batch[i * per:(i + 1) * per]).to(dev)
+            outs.append(self._fetch(replica, x, tuple(pad_info)))
         with record_function('val/to_host'):
-            out = {k: v[:n_real].cpu().numpy() for k, v in out.items()}
+            out = {k: np.concatenate([o[k].cpu().numpy() for o in outs])[:n_real]
+                   for k in outs[0]}
         return [{k: v[i] for k, v in out.items()} for i in range(n_real)]
 
 
@@ -225,7 +248,7 @@ def validate(val_dirs: ValidationDirs, images_iterator: ImagesIterator,
         # reference entropy-codes one image per ~550 s, ref
         # bit_counter.py:13-74).
         codec = codec_lib.LatentCodec(eval_model.pc, eval_model.pc_config,
-                                      device=eval_model.device)
+                                      device=eval_model.devices)
 
     saver = checkpoint_lib.Saver(val_dirs.ckpt_dir)
     last_itr = missing[-1][0]
@@ -239,12 +262,11 @@ def validate(val_dirs: ValidationDirs, images_iterator: ImagesIterator,
         agg = ValuesAggregator('bpp', 'ms-ssim', 'psnr')
         measures_writer = MeasuresWriter(val_dirs.out_dir)
         img_counter = 0
+        bucket = flags.eval_batch * len(eval_model.devices)
         try:
             for names, imgs, pad_info in iter_shape_buckets(
-                    images_iterator.iter_padded(pad=ae_lib.SUBSAMPLING_FACTOR),
-                    flags.eval_batch):
-                outs = eval_model.fetch_many(imgs, pad_info=pad_info,
-                                             pad_batch_to=flags.eval_batch)
+                    images_iterator.iter_padded(pad=ae_lib.SUBSAMPLING_FACTOR), bucket):
+                outs = eval_model.fetch_many(imgs, pad_info=pad_info, pad_batch_to=bucket)
                 num_pixels = pad_info[2] * pad_info[3]
                 real_results = None
                 if flags.real_bpp:

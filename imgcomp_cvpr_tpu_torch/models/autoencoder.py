@@ -33,6 +33,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..ops import tf_compat
+from ..parallel import mesh as mesh_lib
 from . import quantizer as quantizer_lib
 
 ARCH_PARAM_N = 128
@@ -82,8 +83,10 @@ class SlimConv(nn.Module):
             y = tf_compat.conv2d_same_nchw(x.to(dt), w, self.stride)
         y = y.float()
         if train:
-            mean = y.mean((0, 2, 3))
-            var = torch.clamp(torch.square(y).mean((0, 2, 3)) - torch.square(mean), min=0.0)
+            # global-batch statistics under data parallelism (parallel/mesh.py)
+            mean = mesh_lib.batch_mean(y, (0, 2, 3))
+            var = torch.clamp(mesh_lib.batch_mean(torch.square(y), (0, 2, 3))
+                              - torch.square(mean), min=0.0)
             with torch.no_grad():   # the running statistics, updated in place
                 m = self.BN_MOMENTUM
                 self.bn_mean.mul_(m).add_(mean, alpha=1 - m)

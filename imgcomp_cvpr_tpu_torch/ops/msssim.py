@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from . import tf_compat
+from ..parallel import mesh as mesh_lib
 
 _WEIGHTS = np.array([0.0448, 0.2856, 0.3001, 0.2363, 0.1333], np.float32)
 
@@ -77,8 +78,9 @@ def _ssim_for_scale(img1, img2, blur: Callable, max_val, k1=0.01, k2=0.03):
     c2 = (k2 * max_val) ** 2
     v1 = 2.0 * sigma12 + c2
     v2 = sigma11 + sigma22 + c2
-    ssim = torch.mean(((2.0 * mu1 * mu2 + c1) * v1) / ((mu1 * mu1 + mu2 * mu2 + c1) * v2))
-    cs = torch.mean(v1 / v2)
+    # means over the global batch under data parallelism (parallel/mesh.py)
+    ssim = mesh_lib.batch_mean(((2.0 * mu1 * mu2 + c1) * v1) / ((mu1 * mu1 + mu2 * mu2 + c1) * v2))
+    cs = mesh_lib.batch_mean(v1 / v2)
     return ssim, cs
 
 

@@ -24,8 +24,10 @@ the plain versions, which no kernel change moves):
 Workload: random-init pc params (``probclass.init_params``, seed + 1) +
 uniform random symbols (``np.random.RandomState(seed)``) at a Kodak-ratio
 latent shape, batch 8, centers linspace(-2, 2, L). ``--impl`` is one of the
-port's two codecs: ``cuda`` (K=3 wavefront, kernels 2 and 3) or
-``cuda_planar`` (planar, kernels 5 and 6). The port codes at bsub 1 only, so
+port's codecs: ``cuda`` (K=3 wavefront, kernels 2 and 3), ``cuda_planar``
+(planar, kernels 5 and 6) or a scan codec, ``direct``, ``cached`` or ``ring``
+(coding/scan_codec.py, container impl id 7; cached and ring at K=3 only, and
+slow: size the shape down). The port codes at bsub 1 only, so
 ``--bsubs`` is [1]; any other value raises.
 
 Each tree runs its own kernels: ops/kernels/build.py keys the libraries to
@@ -92,8 +94,8 @@ def cmd_dump(args):
     out = {'shape': shape, 'L': args.L, 'k': args.k, 'seed': args.seed,
            'batch': args.batch, 'impl': args.impl, 'cases': {}}
     for bsub in args.bsubs:
-        codec = codec_lib.LatentCodec(pc, cfg, device=_device(args))
-        coder = codec.coder(codec_lib.IMPL_IDS[args.impl])
+        codec = codec_lib.LatentCodec(pc, cfg, device=_device(args), impl=args.impl)
+        coder = codec.coder(codec.impl_id)
         res = coder.encode_batch(syms, centers)
         dec = codec.decode_batch([r.bitstream for r in res], centers, device_out=False)
         np.testing.assert_array_equal(dec, syms.astype(np.int32))
@@ -261,7 +263,8 @@ def main(argv=None):
         sp.add_argument('--k', type=int, default=3)
         sp.add_argument('--seed', type=int, default=0)
         sp.add_argument('--batch', type=int, default=8)
-        sp.add_argument('--impl', default='cuda', choices=['cuda', 'cuda_planar'])
+        sp.add_argument('--impl', default='cuda',
+                        choices=['cuda', 'cuda_planar', 'direct', 'cached', 'ring'])
         sp.add_argument('--bsubs', type=int, nargs='+', default=list(_PORTED_BSUBS))
 
     sp = sub.add_parser('dump')

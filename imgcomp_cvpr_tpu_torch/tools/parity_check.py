@@ -56,6 +56,7 @@ def check_manifest(manifest_path: str, ae_spec: str, pc_spec: str) -> bool:
     import pickle
 
     from ..utils import config as config_lib
+    from ..parallel import mesh as mesh_lib
     from . import tf1_import
 
     ae_config, _ = config_lib.parse_spec(ae_spec, 'ae')
@@ -92,20 +93,18 @@ def run_parity(ckpt_path: str, ae_spec: str, pc_spec: str, images: str,
     from ..data.images_iterator import ImagesIterator
     from ..eval import validate as validate_lib
     from ..models import autoencoder as ae_lib
+    from ..parallel import mesh as mesh_lib
     from ..utils import config as config_lib
     from . import tf1_import
 
-    if num_devices > 1:
-        raise ValueError(
-            f'num_devices {num_devices}: data-parallel evaluation is not ported; it '
-            'comes with data-parallel training (DDP), ROADMAP.md Queue 1, '
-            '"Data-parallel training"')
     ae_config, _ = config_lib.parse_spec(ae_spec, 'ae')
     pc_config, _ = config_lib.parse_spec(pc_spec, 'pc')
     params, batch_stats = tf1_import.import_tf1_checkpoint(
         ckpt_path, ae_config, pc_config)
 
-    model = validate_lib.EvalModel(ae_config, pc_config, device=device)
+    model = validate_lib.EvalModel(ae_config, pc_config,
+                                   device=mesh_lib.device_list(device, num_devices))
+    eval_batch *= num_devices        # eval_batch images on each device
     model.set_params({'ae': weights_lib.ae_state_dict(params['ae'], batch_stats, model.ae),
                       'pc': weights_lib.pc_state_dict(params['pc'])})
 
@@ -170,7 +169,8 @@ def main(argv=None):
     p.add_argument('--budget', type=float, default=0.005,
                    help='Relative deviation budget (default 0.5%%)')
     p.add_argument('--num_devices', type=int, default=1,
-                   help='Cards to evaluate on; only 1 is supported.')
+                   help='Evaluate data-parallel over N devices (cards cuda:0..N-1, '
+                        'or N copies on the CPU with --device cpu).')
     p.add_argument('--device', default='cuda',
                    help="'cuda' (default; raises with no card) or 'cpu'.")
     flags = p.parse_args(argv)

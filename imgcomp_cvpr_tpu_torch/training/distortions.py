@@ -13,6 +13,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..ops import metrics, msssim
+from ..parallel import mesh as mesh_lib
 
 
 def compute(ae_config, x: torch.Tensor, x_out: torch.Tensor, is_training: bool
@@ -24,8 +25,8 @@ def compute(ae_config, x: torch.Tensor, x_out: torch.Tensor, is_training: bool
 
     cast_for_psnr = (not is_training) or minimize_for != 'psnr'
     cast_for_mse = (not is_training) or minimize_for != 'mse'
-    mse = metrics.mse_per_image(x, x_out, cast_for_mse).mean()
-    psnr = metrics.psnr_per_image(x, x_out, cast_for_psnr).mean()
+    mse = mesh_lib.batch_mean(metrics.mse_per_image(x, x_out, cast_for_mse))
+    psnr = mesh_lib.batch_mean(metrics.psnr_per_image(x, x_out, cast_for_psnr))
     comps = {'mse': mse, 'psnr': psnr}
 
     if minimize_for == 'mse':

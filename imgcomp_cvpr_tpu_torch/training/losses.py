@@ -17,6 +17,7 @@ from torch import nn
 
 from ..models.autoencoder import SlimConv
 from ..models.probclass import MaskedConv3D
+from ..parallel import mesh as mesh_lib
 
 
 def l2_of_conv_kernels(module: nn.Module) -> torch.Tensor:
@@ -36,8 +37,8 @@ def l2_of_conv_kernels(module: nn.Module) -> torch.Tensor:
 
 def rate_loss(bc: torch.Tensor, heatmap: Optional[torch.Tensor], H_target: float,
               beta: float) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    H_real = bc.mean()
-    H_mask = (bc * heatmap).mean() if heatmap is not None else H_real
+    H_real = mesh_lib.batch_mean(bc)
+    H_mask = mesh_lib.batch_mean(bc * heatmap) if heatmap is not None else H_real
     H_soft = 0.5 * (H_mask + H_real)
     pc_loss = beta * torch.clamp(H_soft - H_target, min=0.0)
     return pc_loss, {'H_real': H_real, 'H_mask': H_mask, 'H_soft': H_soft,

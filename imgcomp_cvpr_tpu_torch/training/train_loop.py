@@ -15,6 +15,14 @@ only at the log intervals.
 reference's command line and do nothing: they steer a remote-dispatch
 workaround (fused multi-step dispatches and their watchdog) that the card
 does not need (ROADMAP.md, Queue 1, "Deliberately not ported").
+
+``num_devices`` N runs data-parallel (parallel/mesh.py): N ranks, one device
+each (cuda:0..N-1, or N gloo ranks on the CPU with ``device='cpu'``), one
+process each (N = 1 runs in this process). Rank 0 alone runs the input
+pipelines: it pads each global batch to a multiple of N by repeating its
+last image and broadcasts it, and every rank trains on its slice. Rank 0
+alone writes the log dir, logs, checkpoints, image dumps and the d_BPG
+monitor; the checkpoints are those of a one-device run.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 from .. import resolve_device
 from ..data import pipeline as pipeline_lib
 from ..eval import codec_distance as cd
+from ..parallel import mesh as mesh_lib
 from ..utils import config as config_lib
 from ..utils import logdir as logdir_lib
 from ..utils import logger as logger_lib
@@ -59,26 +68,56 @@ def train(ae_config_spec: str, pc_config_spec: str,
           ckpt_interval_hours: float = 1.0,
           description: str = '',
           seed: int = 1234,
-          device='cuda') -> str:
-    """Train and return the run's log dir."""
+          device='cuda',
+          num_devices: Optional[int] = None) -> str:
+    """Train and return the run's log dir; with ``num_devices``, over that
+    many ranks (see the module docstring)."""
+    kwargs = dict(ae_config_spec=ae_config_spec, pc_config_spec=pc_config_spec,
+                  dataset_train=dataset_train, dataset_test=dataset_test,
+                  dataset_codec_distance=dataset_codec_distance, log_dir_root=log_dir_root,
+                  restore_manager=restore_manager, flags=flags,
+                  ckpt_interval_hours=ckpt_interval_hours, description=description,
+                  seed=seed)
+    if num_devices is None:
+        return _train(device=device, mesh=None, **kwargs)
+    devices = mesh_lib.device_list(device, num_devices)
+    init = f'tcp://localhost:{mesh_lib.free_port()}'
+    if num_devices == 1:
+        return _rank_main(0, 1, devices, init, kwargs)
+    return mesh_lib.spawn(_rank_main, num_devices, (num_devices, devices, init, kwargs))
+
+
+def _rank_main(rank: int, world: int, devices, init: str, kwargs) -> Optional[str]:
+    mesh = mesh_lib.init_process_group(rank, world, devices[rank], init)
+    try:
+        return _train(device=mesh.device, mesh=mesh, **kwargs)
+    finally:
+        mesh_lib.destroy_process_group()
+
+
+def _train(ae_config_spec, pc_config_spec, dataset_train, dataset_test,
+           dataset_codec_distance, log_dir_root, restore_manager, flags,
+           ckpt_interval_hours, description, seed, device, mesh) -> Optional[str]:
     dev = resolve_device(device)
+    lead = mesh is None or mesh.rank == 0     # writes logs, checkpoints, images
     ae_config, ae_rel = config_lib.parse_spec(ae_config_spec, 'ae')
     pc_config, pc_rel = config_lib.parse_spec(pc_config_spec, 'pc')
-    print(f'Using ae_config ({ae_rel}):\n{ae_config}\n---\n'
-          f'Using pc_config ({pc_rel}):\n{pc_config}')
-
-    if restore_manager is not None and restore_manager.continue_in_ckpt_dir:
-        log_dir = restore_manager.log_dir
-    else:
-        log_dir = logdir_lib.create_unique_log_dir(
-            [ae_rel, pc_rel], log_dir_root,
-            restore_dir=restore_manager.ckpt_dir if restore_manager else None)
-    print(f'- LOG DIR: {log_dir}')
-    if description:
-        registry_lib.insert_run(
-            log_dir_root, logdir_lib.log_date_from_log_dir(log_dir),
-            ae_rel, pc_rel, description,
-            is_continue=bool(restore_manager and restore_manager.continue_in_ckpt_dir))
+    log_dir = None
+    if lead:
+        print(f'Using ae_config ({ae_rel}):\n{ae_config}\n---\n'
+              f'Using pc_config ({pc_rel}):\n{pc_config}')
+        if restore_manager is not None and restore_manager.continue_in_ckpt_dir:
+            log_dir = restore_manager.log_dir
+        else:
+            log_dir = logdir_lib.create_unique_log_dir(
+                [ae_rel, pc_rel], log_dir_root,
+                restore_dir=restore_manager.ckpt_dir if restore_manager else None)
+        print(f'- LOG DIR: {log_dir}')
+        if description:
+            registry_lib.insert_run(
+                log_dir_root, logdir_lib.log_date_from_log_dir(log_dir),
+                ae_rel, pc_rel, description,
+                is_continue=bool(restore_manager and restore_manager.continue_in_ckpt_dir))
 
     ds_train = pipeline_lib.get_dataset(dataset_train)
     ds_test = pipeline_lib.get_dataset(dataset_test)
@@ -89,27 +128,29 @@ def train(ae_config_spec: str, pc_config_spec: str,
         shuffle=False, num_crops_per_img=1)
 
     trainer = Trainer(ae_config, pc_config, num_train_images=ds_train.num_images,
-                      num_crops_per_img=ip_train.num_crops_per_img, device=dev)
+                      num_crops_per_img=ip_train.num_crops_per_img, device=dev, mesh=mesh)
     state = trainer.init_state(seed)
     start_itr = 0
     if restore_manager is not None:
         state, start_itr = restore_manager.restore(state)
-        print(f'Restored at iteration {start_itr}')
+        if lead:
+            print(f'Restored at iteration {start_itr}')
 
-    saver = checkpoint_lib.Saver(logdir_lib.ckpt_dir_for_log_dir(log_dir),
-                                 max_to_keep=1,
-                                 keep_every_n_hours=ckpt_interval_hours)
-    train_logger = logger_lib.MetricsLogger(log_dir, 'train')
-    test_logger = logger_lib.MetricsLogger(log_dir, 'test')
-    timer = logger_lib.Timer(flags.log_interval_train, ae_config.batch_size)
+    if lead:
+        saver = checkpoint_lib.Saver(logdir_lib.ckpt_dir_for_log_dir(log_dir),
+                                     max_to_keep=1,
+                                     keep_every_n_hours=ckpt_interval_hours)
+        train_logger = logger_lib.MetricsLogger(log_dir, 'train')
+        test_logger = logger_lib.MetricsLogger(log_dir, 'test')
+        timer = logger_lib.Timer(flags.log_interval_train, ae_config.batch_size)
 
-    # Distance-to-BPG monitor on the test split (ref: train.py:133-143);
-    # NaN when no measured codec curves are available.
-    try:
-        codec_dist = cd.CodecDistance(dataset_codec_distance, 'bpg', 'ms-ssim')
-    except cd.CodecDistanceReadException as e:
-        print(f'Cannot compute CodecDistance: {e}')
-        codec_dist = None
+        # Distance-to-BPG monitor on the test split (ref: train.py:133-143);
+        # NaN when no measured codec curves are available.
+        try:
+            codec_dist = cd.CodecDistance(dataset_codec_distance, 'bpg', 'ms-ssim')
+        except cd.CodecDistanceReadException as e:
+            print(f'Cannot compute CodecDistance: {e}')
+            codec_dist = None
 
     def d_bpg(bpp: float, ms_ssim: float) -> float:
         if codec_dist is None:
@@ -119,7 +160,7 @@ def train(ae_config_spec: str, pc_config_spec: str,
         except ValueError:      # bpp outside the codec's curve
             return float('nan')
 
-    def put(batch: np.ndarray) -> torch.Tensor:
+    def upload(batch: np.ndarray) -> torch.Tensor:
         """uint8 host batch -> device; from pinned memory on a card, so the
         copy overlaps the step that is running."""
         t = torch.from_numpy(batch)
@@ -127,50 +168,72 @@ def train(ae_config_spec: str, pc_config_spec: str,
             t = t.pin_memory()
         return t.to(dev, non_blocking=True)
 
+    def fetch(ip) -> Optional[np.ndarray]:
+        """The next global batch: rank 0 reads the pipeline (the others
+        receive it in put)."""
+        return ip.get_batch() if lead else None
+
+    def put(batch: Optional[np.ndarray]) -> torch.Tensor:
+        """Global batch -> this rank's slice on the device."""
+        if mesh is None:
+            return upload(batch)
+        n = -(-ae_config.batch_size // mesh.world_size) * mesh.world_size
+        shape = (n,) + tuple(ae_config.crop_size) + (3,)
+        return mesh_lib.shard_batch(mesh_lib.broadcast_batch(
+            None if batch is None else mesh_lib.pad_batch_to_multiple(batch, mesh.world_size),
+            shape, mesh), mesh)
+
     profiler = None
     itr = start_itr
-    ip_train.start()
-    ip_test.start()
+    if lead:
+        ip_train.start()
+        ip_test.start()
     try:
         pending = None
         while flags.max_steps is None or itr < flags.max_steps:
-            if flags.profile_steps and itr == 10:
+            if flags.profile_steps and itr == 10 and lead:
                 profiler = _start_profiler(dev)
-            dev_batch = pending if pending is not None else put(ip_train.get_batch())
+            dev_batch = pending if pending is not None else put(fetch(ip_train))
             state, comps = trainer.train_step(state, dev_batch)
             itr += 1
             pending = None
             if flags.max_steps is None or itr < flags.max_steps:
-                pending = put(ip_train.get_batch())   # overlaps the step above
-            timer.add(ae_config.batch_size)
+                pending = put(fetch(ip_train))   # overlaps the step above
+            if lead:
+                timer.add(ae_config.batch_size)
             if profiler is not None and itr == 10 + flags.profile_steps:
                 _stop_profiler(profiler, os.path.join(log_dir, 'profile'))
                 profiler = None
 
-            if itr % flags.log_interval_train == 0:
+            if itr % flags.log_interval_train == 0 and lead:
                 scalars = {k: float(v) for k, v in comps.items()}   # syncs
                 scalars['img_per_sec'] = timer.get_avg_ex_per_sec()
                 train_logger.log(itr, scalars)
                 timer.reset()
 
-            if itr % flags.log_interval_save == 0:
+            if itr % flags.log_interval_save == 0 and lead:
                 saver.save(state.state_dict(), itr)
 
             if flags.log_interval_test > 0 and itr % flags.log_interval_test == 0:
-                test_batch_np = ip_test.get_batch()
+                test_batch_np = fetch(ip_test)
                 test_batch = put(test_batch_np)
-                scalars = {k: float(v) for k, v in trainer.eval_step(state, test_batch).items()}
-                _dump_test_images(log_dir, itr, state, test_batch, test_batch_np)
-                scalars['d_BPG'] = d_bpg(scalars['bpp'], scalars['ms_ssim_eval'])
-                test_logger.log(itr, scalars)
+                out = trainer.eval_step(state, test_batch)
+                if lead:
+                    scalars = {k: float(v) for k, v in out.items()}
+                    _dump_test_images(log_dir, itr, state,
+                                      test_batch if mesh is None else upload(test_batch_np),
+                                      test_batch_np)
+                    scalars['d_BPG'] = d_bpg(scalars['bpp'], scalars['ms_ssim_eval'])
+                    test_logger.log(itr, scalars)
     finally:
-        ip_train.stop()
-        ip_test.stop()
-        if profiler is not None:
-            _stop_profiler(profiler, os.path.join(log_dir, 'profile'))
-        saver.save(state.state_dict(), max(itr, 1))
-        train_logger.close()
-        test_logger.close()
+        if lead:
+            ip_train.stop()
+            ip_test.stop()
+            if profiler is not None:
+                _stop_profiler(profiler, os.path.join(log_dir, 'profile'))
+            saver.save(state.state_dict(), max(itr, 1))
+            train_logger.close()
+            test_logger.close()
     return log_dir
 
 

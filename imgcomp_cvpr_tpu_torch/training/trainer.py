@@ -9,12 +9,20 @@ loss -> backward (kernel 7 under QuantizeFn) -> the three optimizer
 groups. The reference's multi-step dispatch (``_train_multi``, a scan that
 hides its remote-dispatch latency) has no counterpart: PyTorch enqueues
 each step's kernels without waiting for the device.
+
+With a ``mesh`` (parallel/mesh.py) the trainer is one rank of a
+data-parallel group: a step takes this rank's slice of the global batch,
+every batch mean of the loss (BatchNorm statistics, the rate terms,
+MS-SSIM's per-scale means, MSE / PSNR, bpp) is a mean over the global batch,
+and the gradients are averaged over the ranks before the update, so the
+step is the one-device step on the global batch. Modules start from rank
+0's values.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +32,7 @@ from ..models import autoencoder as ae_lib
 from ..models import probclass as pc_lib
 from ..ops import bits as bits_lib
 from ..ops import msssim as msssim_lib
+from ..parallel import mesh as mesh_lib
 from . import distortions as distortions_lib
 from . import losses as losses_lib
 from . import optimizers as opt_lib
@@ -49,10 +58,12 @@ class TrainState:
 
 class Trainer:
     def __init__(self, ae_config, pc_config, num_train_images: int = 1_281_167,
-                 num_crops_per_img: int = 1, device='cuda'):
+                 num_crops_per_img: int = 1, device='cuda',
+                 mesh: Optional[mesh_lib.Mesh] = None):
         self.ae_config = ae_config
         self.pc_config = pc_config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.itr_per_epoch = opt_lib.num_itr_per_epoch(
             num_train_images, ae_config.batch_size, num_crops_per_img)
 
@@ -64,6 +75,9 @@ class Trainer:
                                    device=self.device)
         ae_lib.init_params(ae, seed)
         pc_lib.init_params(pc, seed + 1)
+        if self.mesh is not None:
+            mesh_lib.replicate([*ae.parameters(), *ae.buffers(), *pc.parameters(),
+                                *pc.buffers()], self.mesh)
         optimizer = opt_lib.make_optimizer(ae, pc, self.ae_config, self.pc_config,
                                            self.itr_per_epoch)
         return TrainState(ae, pc, optimizer, 0)
@@ -87,6 +101,10 @@ class Trainer:
         """Training forward: (total_loss, comps), differentiable; moves the
         BatchNorm running statistics."""
         x = self._to_device(batch)
+        with mesh_lib.global_batch(self.mesh):
+            return self._loss(state, x)
+
+    def _loss(self, state: TrainState, x: torch.Tensor):
         enc, x_out = state.ae(x, True)
         # The context model sees qbar with the gradient stopped
         # (ref: train.py:104-105).
@@ -107,6 +125,9 @@ class Trainer:
         state.optimizer.zero_grad()
         total, comps = self.loss_fn(state, batch)
         total.backward()
+        if self.mesh is not None:
+            mesh_lib.all_reduce_grads([*state.ae.parameters(), *state.pc.parameters()],
+                                      self.mesh)
         state.optimizer.step()
         state.step += 1
         return state, {k: v.detach() for k, v in comps.items()}
@@ -119,9 +140,11 @@ class Trainer:
         enc = state.ae.encode(x)
         x_out = state.ae.decode(enc.qhard)
         bc = self._bitcost(state, enc.qhard, enc.symbols)
-        _, d_comps = distortions_lib.compute(self.ae_config, x, x_out,
-                                             is_training=False)
-        out = dict(d_comps)
-        out['bpp'] = bits_lib.bitcost_to_bpp(bc, x)
-        out['ms_ssim_eval'] = msssim_lib.msssim_eval(x, x_out)
+        with mesh_lib.global_batch(self.mesh):
+            _, d_comps = distortions_lib.compute(self.ae_config, x, x_out,
+                                                 is_training=False)
+            out = dict(d_comps)
+            out['bpp'] = bits_lib.bitcost_to_bpp(bc, x)
+            out['ms_ssim_eval'] = msssim_lib.msssim_eval(x, x_out)
         return out
+

@@ -377,10 +377,25 @@ def test_validate_matches_jax(trained_models, crops, tmp_path):
     assert os.path.getmtime(os.path.join(t_out, 'measures.csv')) == mtime
 
 
-def test_val_torch_refuses_several_devices_and_cuda_without_card(tmp_path):
+def test_val_torch_refuses_several_devices_and_cuda_without_card(crops, tmp_path):
+    """--num_devices 2 --device cpu validates data-parallel over two CPU
+    copies of the model: the same measures.csv as one device. 'cuda' with
+    no card raises."""
     import val_torch
-    with pytest.raises(ValueError, match='Data-parallel training'):
-        val_torch.main([str(tmp_path), 'x', NATKODAK, '--num_devices', '2', '--device', 'cpu'])
+    ae_cfg, _ = tconfig.parse_spec('cvpr/low', 'ae')
+    pc_cfg, _ = tconfig.parse_spec('cvpr/res_shallow', 'pc')
+    state = ttrainer.Trainer(ae_cfg, pc_cfg, device='cpu').init_state(0)
+    tweights.load_trained(ASSET, state.ae, state.pc, device='cpu')
+    measures = []
+    for n in ('1', '2'):
+        root = str(tmp_path / n)
+        log = tlogdir.create_unique_log_dir(['cvpr/low', 'cvpr/res_shallow'], root)
+        tckpt.Saver(tlogdir.ckpt_dir_for_log_dir(log)).save(state.state_dict(), 9000)
+        job = tlogdir.log_date_from_log_dir(log)
+        val_torch.main([root, job, str(crops), '--device', 'cpu', '-s', '-1',
+                        '--num_devices', n])
+        measures.append(_measures(os.path.join(root, f'{job} crops')))
+    assert measures[0] == measures[1] and len(measures[0]) == 3
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='cuda'):
             val_torch.main([str(tmp_path), 'x', NATKODAK])

@@ -47,7 +47,9 @@ GUARD = textwrap.dedent('''
               'eval.validate', 'eval.val_files', 'eval.compare_imgs', 'eval.other_codecs',
               'eval.codec_distance', 'eval.plotter', 'tools.codec_cli', 'tools.profile_codec',
               'tools.ab_streams', 'tools.parity_check', 'tools.tf1_import', 'tools.ckpt_mapper',
-              'tools.make_records', 'tools.gen_natural_set', 'tools.purge_checkpoints'):
+              'tools.make_records', 'tools.gen_natural_set', 'tools.purge_checkpoints',
+              'coding.wavefront', 'coding.scan_codec', 'coding.cached', 'coding.ring',
+              'coding.native.build', 'parallel.mesh'):
         assert 'imgcomp_cvpr_tpu_torch.' + m in mods, m
     print(len(mods), 'modules')
 ''')

@@ -393,9 +393,12 @@ def test_parity_check_pass_and_fail(parity_setup, capsys):
                          '--expected_bpp', repr(bpp * 1.2), '--expected_msssim',
                          repr(msssim), '--device', 'cpu']) == 1
     assert 'FAIL' in capsys.readouterr().out
-    with pytest.raises(ValueError, match='Queue 1'):
-        tparity.main([prefix, '--images', img_dir, '--ae', 'tiny', '--pc', 'tiny',
-                      '--num_devices', '2', '--device', 'cpu'])
+    # Data-parallel over two CPU copies of the model: the same numbers.
+    assert tparity.run_parity(prefix, 'tiny', 'tiny', img_dir, num_devices=2,
+                              device='cpu') == (ok, bpp, msssim)
+    assert tparity.main([prefix, '--images', img_dir, '--ae', 'tiny', '--pc', 'tiny',
+                         '--expected_bpp', repr(bpp), '--expected_msssim', repr(msssim),
+                         '--num_devices', '2', '--device', 'cpu']) == 0
 
 
 def test_parity_check_matches_jax_harness(parity_setup):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Training entry point of the PyTorch/CUDA port (the command line of
 train.py; ref: train.py:471-526). Runs on one CUDA card unless --device
-says otherwise.
+says otherwise; --num_devices N trains data-parallel over N ranks
+(training/train_loop.py).
 
     python train_torch.py cvpr/low cvpr/res_shallow -dtrain synthetic:64 \\
         -dtest synthetic:8 --max_steps 20 -ltrain 5 -ltest 10 -o logs_torch
@@ -55,6 +56,9 @@ def main(argv=None):
     p.add_argument('--seed', type=int, default=1234)
     p.add_argument('--device', default='cuda',
                    help="'cuda' (default; raises with no card) or 'cpu'.")
+    p.add_argument('--num_devices', type=int, default=None,
+                   help='Data-parallel over N ranks: cards cuda:0..N-1 (raises when '
+                        'the machine has fewer), or N gloo ranks with --device cpu.')
     flags = p.parse_args(argv)
 
     if flags.temporary:
@@ -81,7 +85,8 @@ def main(argv=None):
         ckpt_interval_hours=flags.ckpt_interval,
         description=flags.description if not flags.temporary else '',
         seed=flags.seed,
-        device=flags.device)
+        device=flags.device,
+        num_devices=flags.num_devices)
 
 
 if __name__ == '__main__':

@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Validation entry point of the PyTorch/CUDA port (the command line of
 val.py, ref: val.py:265-302, plus --device). Runs on one CUDA card unless
---device says otherwise.
+--device says otherwise, or data-parallel over --num_devices cards
+(eval/validate.py).
 
     python val_torch.py LOG_ROOT JOB_IDS work_rd/natkodak24 --real_bpp --save_ours
 
@@ -18,6 +19,7 @@ from imgcomp_cvpr_tpu_torch.data import val_images
 from imgcomp_cvpr_tpu_torch.data.images_iterator import ImagesIterator
 from imgcomp_cvpr_tpu_torch.eval import validate as validate_lib
 from imgcomp_cvpr_tpu_torch.eval.val_files import ValidationDirs
+from imgcomp_cvpr_tpu_torch.parallel import mesh as mesh_lib
 from imgcomp_cvpr_tpu_torch.utils import logdir as logdir_lib
 
 
@@ -38,19 +40,17 @@ def main(argv=None):
                    help='Entropy-code each image for real (bit-exact round-trip '
                         'checked); prints real vs theoretical vs loss bpp.')
     p.add_argument('--num_devices', type=int, default=None,
-                   help='Accepted for the command line of val.py; only 1 card '
-                        'is supported.')
+                   help='Validate data-parallel over N devices: cards cuda:0..N-1 '
+                        '(raises when the machine has fewer), or N copies on the '
+                        'CPU with --device cpu; each device takes batches of 8.')
     p.add_argument('--device', default='cuda',
                    help="'cuda' (default; raises with no card) or 'cpu'.")
     flags, unknown = p.parse_known_args(argv)
     if unknown:
         print(f'Unknown flags: {unknown}')
-    if flags.num_devices is not None and flags.num_devices > 1:
-        raise ValueError(
-            f'--num_devices {flags.num_devices}: data-parallel validation is not '
-            'ported; it comes with data-parallel training (DDP), ROADMAP.md '
-            'Queue 1, "Data-parallel training"')
     dev = resolve_device(flags.device)
+    if flags.num_devices is not None:
+        dev = mesh_lib.device_list(dev, flags.num_devices)
 
     image_paths, dataset_name = val_images.get_image_paths(flags.images)
     images_iterator = ImagesIterator(image_paths[:flags.how_many], dataset_name,
