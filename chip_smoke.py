@@ -7,6 +7,8 @@ card and nvcc; exits non-zero without them). ``python3 chip_smoke.py
 the main path's shapes, held to their plain versions and timed as in the
 kernels line, with the package of DIR (a checkout of another commit) when
 given: two such runs in one call compare two versions on one card.
+``--kernel2-only [--root DIR]`` does the same for kernel 2 (3a, 3b) at each
+operand precision the package has, on the trained K=3 context model.
 
 Phases, one line each:
   1. the device (torch name, nvidia-smi name and power limit);
@@ -114,13 +116,30 @@ Phases, one line each:
      9c: phase 7's sweep with and without real_bpp, and its K=5 run,
      through EvalModel and LatentCodec given the card twice: phase 7's
      measures rows and stream bytes exactly;
- 10. the kernels line: each kernel's launches in its main-path phase (4, 5
-     or 6), its error against the plain version, times and bound; the
+ 10. kernel 2 at its operand precisions bf16 and f8 (container prec 1 and
+     2) with the trained K=3 model on phase 4's images: per precision the
+     main path through LatentCodec(prec=...) (CRC-verified bit-exact, prec
+     byte checked, its own kernel-2 instance launched and the f32 one not),
+     bpp and theory against f32 on the same symbols, kernel 2's
+     layer-parallel tables equal to its scan's mode-1 tables and to its
+     plain version's on every entry, 3a / 3b ms, the plain decode of the
+     same streams; seeded kf = 64 (weights in device memory) and kf = 8
+     (generic instance) context models at B=2 through the same checks;
+     the prec-0 streams of ab_streams' workload at K=3 and K=5 against the
+     parent commit's digests (AB_DIGESTS);
+ 11. the entry points of graft_entry_torch.py on the card: entry()
+     against the same step on the CPU, and dryrun_multichip(1) (an NCCL
+     world-1 train step, EvalModel, a LatentCodec round trip);
+ 12. the kernels line: each kernel's launches in its main-path phase (4, 5
+     or 6; kernel 2's bf16 and f8 rows: phase 10), its error against the
+     plain version, times and bound (the bf16 and f8 rows count their
+     operations at the bf16 rate, the type of their operands); the
      kernels of phase 7's real-bpp runs also give ``launches_validation``
      (phase 7's count, K=3 sweep and K=5 run), those of the tools
      ``launches_tools`` (phase 8's count), every kernel
      ``launches_parallel`` (phase 9's data-parallel runs: 9b's train steps
-     for kernels 1 and 7, 9c's real-bpp validation for 1, 2, 3, 5, 6). Kernel 1
+     for kernels 1 and 7, 9c's real-bpp validation for 1, 2, 3, 5, 6) and
+     ``launches_entry`` (phase 11's count). Kernel 1
      has two rows: ``quantize`` (codec shape, phase 4's launches) and
      ``quantize_train`` (training shape, phase 6b's launches). Kernels 1
      and 7 are short beside the host work of a wrapper call, so their rows
@@ -145,6 +164,7 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
+H100_BF16_FLOPS = 989e12        # bf16 dense, tensor cores (the H100 SXM data sheet)
 FADD_LATENCY_CLOCKS = 4         # dependent f32 add to add, Hopper
 ALU_LATENCY_CLOCKS = 4          # dependent integer ALU op to op, Hopper
 # Dependent instructions of one sub-iteration's state update in the SASS of
@@ -161,6 +181,7 @@ NATKODAK = os.path.join(HERE, 'work_rd', 'natkodak24')   # 24 PNGs of 512x768
 VAL_ROOT = os.path.join(HERE, 'build', 'chip_smoke_val')  # phase 7's log root
 VAL_BATCH, VAL_IMAGES = 8, 24
 TOOLS_ROOT = os.path.join(HERE, 'build', 'chip_smoke_tools')  # phase 8's files
+PREC_ROOT = os.path.join(HERE, 'build', 'chip_smoke_prec')    # phase 10's files
 OVERHEAD_LIMIT_PCT = 1.0    # real/theory bits at Kodak size, trained model (PERF.md)
 
 
@@ -311,6 +332,57 @@ def quantizer_only(root):
     return 0
 
 
+def kernel2_only(root):
+    """`--kernel2-only [--root DIR]`: kernel 2 alone with the trained K=3
+    context model at the main path's shape (B=16, latent (32, 64, 96)) on
+    seeded symbols (most on the two middle centers, as the trained AE puts
+    them): the layer-parallel encode (3a) and the scan decode (3b) at each
+    operand precision the package has, the decode held to the symbols; DIR
+    (a checkout of another commit) supplies the package instead of this
+    one. Prints one line a precision and one JSON line."""
+    import torch
+    if root:
+        sys.path.insert(0, os.path.abspath(root))
+    from imgcomp_cvpr_tpu_torch import weights as weights_lib
+    from imgcomp_cvpr_tpu_torch.coding import cuda_codec, cuda_kernel as ck
+    from imgcomp_cvpr_tpu_torch.models import autoencoder as ae_lib
+    from imgcomp_cvpr_tpu_torch.models import probclass as pc_lib
+    from imgcomp_cvpr_tpu_torch.ops.kernels import build
+    from imgcomp_cvpr_tpu_torch.utils import config as config_lib
+    if root and not os.path.abspath(build.__file__).startswith(os.path.abspath(root)):
+        raise AssertionError(f'package not taken from {root}')
+    dev = torch.device('cuda')
+    build.build_all()
+    ae_config, _ = config_lib.parse_spec('cvpr/low', 'ae')
+    pc_config, _ = config_lib.parse_spec('cvpr/res_shallow', 'pc')
+    ae = ae_lib.CVPRAutoencoder(ae_config, device=dev)
+    pc = pc_lib.ProbClassifier(pc_config, ae_config.num_centers, device=dev)
+    ae, pc = weights_lib.load_trained(ASSET, ae, pc, device=dev)
+    shape = (ae_config.num_chan_bn, IMG_H // 8, IMG_W // 8)
+    n = int(np.prod(shape))
+    rng = np.random.RandomState(0)
+    syms = torch.from_numpy(rng.choice(6, size=(BATCH, n), p=[.02, .08, .4, .4, .08, .02]))
+    syms = syms.int().to(dev)
+    fw = cuda_codec.fold_weights(pc, ae.encoder.centers.detach())
+    out = {}
+    for prec in getattr(ck, 'PRECS', ('f32',)):
+        kw = {} if prec == 'f32' else {'prec': prec}
+        f, s = ck.wavefront_forward(ck.MODE_ENCODE, fw, shape, true_syms=syms, **kw)
+        enc_ms = cuda_ms(lambda: ck.wavefront_forward(ck.MODE_ENCODE, fw, shape,
+                                                      true_syms=syms, **kw), 5)
+        args = dict(k3_streams(f, s, shape)[0], **kw)
+        if not torch.equal(ck.wavefront_forward(ck.MODE_DECODE, fw, shape, **args), syms):
+            raise AssertionError(f'kernel 2 at {prec}: the scan did not recover the symbols')
+        dec_ms = cuda_ms(lambda: ck.wavefront_forward(ck.MODE_DECODE, fw, shape, **args), 3)
+        bits = float(-torch.log2(f.double().clamp(min=1) / 65536).sum().item())
+        out[prec] = dict(encode_ms=enc_ms, decode_ms=dec_ms, theory_bits=bits)
+        print(f'[k2 {prec}] 3a encode {enc_ms:.3f} ms, 3b decode {dec_ms:.3f} ms, theory '
+              f'bits {bits:.0f}', flush=True)
+    print(json.dumps({'root': root or '.', 'device': torch.cuda.get_device_name(0),
+                      'kernel2': out}), flush=True)
+    return 0
+
+
 def ptxas_summary(log):
     """ptxas -v's lines of one build that give, function by function, the
     stack frame and spills, then (for a kernel) its registers."""
@@ -398,18 +470,22 @@ def reverse_line(label, B, nw, ms, stats, sm_mhz):
             f'{stats["rows"]} sub-iterations at {sm_mhz} MHz)')
 
 
-def library_logits_ms(pc, centers, syms):
+def library_logits_ms(pc, centers, syms, dtype=None):
     """ms of the port's own ProbClassifier.logits (F.conv3d chain, f32, TF32
-    off) on the same symbols, one image a call as the codecs' convolutions
+    off; with ``dtype`` a copy of the context model and the latent in that
+    type) on the same symbols, one image a call as the codecs' convolutions
     run: the one PyTorch call chain that computes the kernels' logits. It
     stops there: no CDF, no selection of the coded symbol's entry. The codec
     path never calls it."""
+    import copy
     import torch
     from imgcomp_cvpr_tpu_torch.models import probclass as pc_lib
     if torch.backends.cudnn.allow_tf32:
         raise AssertionError('TF32 convolutions are on')
     pad = float(pc_lib.auto_pad_value(pc.config, centers, pc))
     q = centers[syms.long()].permute(0, 2, 3, 1).contiguous()
+    if dtype is not None:
+        pc, q = copy.deepcopy(pc).to(dtype), q.to(dtype)
 
     def run():
         with torch.no_grad():
@@ -1887,6 +1963,7 @@ def main_path(ae, codec, x, centers):
     impl = {codec_lib.stream_impl_id(r.bitstream) for r in results}
     if impl != {codec.impl_id}:
         raise AssertionError(f'main path: impl ids {impl}')
+    precs = {codec_lib.stream_prec(r.bitstream) for r in results}
     mse = torch.mean((x_rec - x) ** 2).item()
     bits = sum(r.num_bits for r in results)
     theo = sum(r.theoretical_bits for r in results)
@@ -1895,7 +1972,8 @@ def main_path(ae, codec, x, centers):
     # model that predicts them badly can code below its own theory.
     ks = [codec_lib.deserialize_stream(r.bitstream)[4] for r in results]
     return launches, dict(
-        syms=syms, bpp=bits / (B * H * W), overhead=100 * (bits / theo - 1),
+        syms=syms, precs=precs, bpp=bits / (B * H * W), overhead=100 * (bits / theo - 1),
+        theo_bpp=theo / (B * H * W),
         warm=np.mean([0 if k is None else int(k.sum()) for k in ks]),
         psnr=10 * np.log10(255.0 ** 2 / mse),
         legs=[ev[i].elapsed_time(ev[i + 1]) for i in range(4)], wall=wall,
@@ -1911,27 +1989,35 @@ def roundtrip_line(rt):
             f'{rt["wall"] * 1e3:.1f} ms = {rt["mp"] / rt["wall"]:.4f} MP/s enc+dec')
 
 
-def k3_kernel_times(fw, shape, syms_flat, force=0):
-    """Kernel 2 at these weights and symbols: (encode tables, scan tables,
-    layer-parallel encode ms (5 launches), scan decode ms (on the cluster
-    the wrapper picks), decoded symbols). The decode reads streams that
-    kernel 3 wrote from the encode tables."""
+def k3_streams(fsel, ssel, shape):
+    """Kernel 3 (x0 = 1) on (B, T, CQ) tables -> (kernel 2's decode inputs:
+    dict(streams (B, cap) in decode order, init_states, thresh), the words
+    of all streams)."""
     import torch
     from imgcomp_cvpr_tpu_torch.coding import cuda_kernel as ck
-    dev = syms_flat.device
-    B = syms_flat.shape[0]
+    dev, B = fsel.device, fsel.shape[0]
     sched = ck.build_schedule(shape)
-    f_k, s_k = ck.wavefront_forward(ck.MODE_ENCODE, fw, shape, true_syms=syms_flat, force=force)
-    f_s, s_s = ck.wavefront_forward(ck.MODE_ENCODE, fw, shape, true_syms=syms_flat, scan=True,
-                                    force=force)
-    enc_ms = cuda_ms(lambda: ck.wavefront_forward(ck.MODE_ENCODE, fw, shape,
-                                                  true_syms=syms_flat, force=force), 2)
-    w, n_w, st, k = ck.rans_reverse(f_k, s_k, shape, 1)
+    w, n_w, st, k = ck.rans_reverse(fsel, ssel, shape, 1)
     streams = torch.zeros(B, sched.stream_cap, dtype=torch.int32, device=dev)
     for i in range(B):
         streams[i, :n_w[i]] = w[i, :n_w[i]].flip(0)
     thresh = (torch.from_numpy(ck.lane_totals(sched)).to(dev)[None] - k).int().contiguous()
-    args = dict(streams=streams, init_states=st, thresh=thresh, force=force)
+    return dict(streams=streams, init_states=st, thresh=thresh), int(n_w.sum().item())
+
+
+def k3_kernel_times(fw, shape, syms_flat, force=0, prec=0):
+    """Kernel 2 at these weights, symbols and operand precision: (encode
+    tables, scan tables, layer-parallel encode ms (5 launches), scan decode
+    ms (on the cluster the wrapper picks), decoded symbols). The decode reads
+    streams that kernel 3 wrote from the encode tables."""
+    from imgcomp_cvpr_tpu_torch.coding import cuda_kernel as ck
+    kw = dict(force=force, prec=prec)
+    f_k, s_k = ck.wavefront_forward(ck.MODE_ENCODE, fw, shape, true_syms=syms_flat, **kw)
+    f_s, s_s = ck.wavefront_forward(ck.MODE_ENCODE, fw, shape, true_syms=syms_flat, scan=True,
+                                    **kw)
+    enc_ms = cuda_ms(lambda: ck.wavefront_forward(ck.MODE_ENCODE, fw, shape,
+                                                  true_syms=syms_flat, **kw), 2)
+    args = dict(k3_streams(f_k, s_k, shape)[0], **kw)
     dec = ck.wavefront_forward(ck.MODE_DECODE, fw, shape, **args)
     dec_ms = cuda_ms(lambda: ck.wavefront_forward(ck.MODE_DECODE, fw, shape, **args))
     return (f_k, s_k), (f_s, s_s), enc_ms, dec_ms, dec
@@ -2221,9 +2307,237 @@ def serving_path(dev, ae_config, ae, lc, lc5, pc, pc_config, pc5, pc5_config, x,
     return launches['bf16']
 
 
-def bound(nbytes, flops):
-    t_b, t_f = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_F32_FLOPS * 1e3
+def bound(nbytes, flops, flops_per_s=H100_F32_FLOPS):
+    t_b, t_f = nbytes / H100_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (t_b, 'bytes') if t_b >= t_f else (t_f, 'operations')
+
+
+def k3_flops(sched, fw, B):
+    """Operations of kernel 2's four layer sums over the unmasked taps of
+    every cell of their grids, for B images."""
+    macs = 0
+    for li, layer in enumerate(sched.layers):
+        cin = 1 if li == 0 else fw.w2.shape[1]
+        cout = fw.w4.shape[-1] if li == 3 else fw.w2.shape[-1]
+        macs += layer.taps.shape[0] * layer.taps.shape[1] * cin * cout
+    return 2 * macs * B
+
+
+# The prec-0 streams of ab_streams' default workload (latent (16, 24, 36),
+# batch 8, seeded random-init context model and symbols), sha256 of the
+# batch (ab_streams.digest) as the parent commit of the bf16 / f8 instances
+# wrote them on an H100: kernels 2 and 3 (cuda, K=3) and 5 and 6
+# (cuda_planar, K=5). Precisions 1 and 2 must not move a byte of them.
+AB_DIGESTS = {'cuda': 'd2a2e7e149d8cf0748cabe87c500d333ec18494cf7e8c024e97d17fc9b0a3078',
+              'cuda_planar': '2e1de80d34049fb433d94689d77d6de79351492fcc598e72dad30ab45726c530'}
+
+
+def precision_path(dev, ae, pc, pc_config, x, centers, rt4, rows):
+    """Phase 10: kernel 2 at its operand precisions bf16 and f8 (container
+    prec 1 and 2; the TPU kernel's make_forward(prec='bf16' | 'f8')) with the
+    trained K=3 model on phase 4's images and symbols (B=16, latent (32, 64,
+    96)). Each precision: the main path through LatentCodec(prec=...) with
+    the launch counts set to 0 just before and read just after (its
+    kernel-2 instance must launch, the f32 one must not), CRC-verified
+    bit-exact, the streams' prec byte checked, leg ms, bpp and real/theory
+    overhead beside phase 4's f32; kernel 2's layer-parallel tables equal to
+    its scan's mode-1 tables and to its plain version's on every entry, its
+    times (3a, 3b) and the plain decode of the same streams. Then a seeded
+    kf = 64 context model (weights in device memory) and a seeded kf = 8
+    one (the generic instance) at B=2 through the same checks; last, the
+    prec-0 streams of ab_streams' workload (K=3 and K=5) against the parent
+    commit's digests. Fills the kernels line's rows of the two precisions;
+    returns the main paths' launch counts by precision."""
+    import io
+    import pickle
+    import torch
+    from imgcomp_cvpr_tpu_torch.coding import codec as codec_lib, cuda_codec
+    from imgcomp_cvpr_tpu_torch.coding import cuda_kernel as ck
+    from imgcomp_cvpr_tpu_torch.models import probclass as pc_lib
+    from imgcomp_cvpr_tpu_torch.tools import ab_streams
+    from imgcomp_cvpr_tpu_torch.utils import config as config_lib
+    t_phase = time.time()
+    syms = rt4['syms']
+    B, C, H, W = syms.shape
+    shape, n = (C, H, W), C * H * W
+    sched = ck.build_schedule(shape)
+    fw = cuda_codec.fold_weights(pc, centers)
+    syms_flat = syms.reshape(B, n).int().contiguous()
+    flops = k3_flops(sched, fw, B)
+    table_bytes = 2 * 4 * B * sched.T * sched.CQ
+    launches = {}
+    for prec in ck.PRECS[1:]:
+        p = ck.prec_id(prec)
+        enc_name = ck.launch_name('wavefront_forward_encode', p)
+        dec_name = ck.launch_name('wavefront_forward_decode', p)
+        lc = codec_lib.LatentCodec(pc, pc_config, device=dev, prec=prec)
+        launches[prec], rt = main_path(ae, lc, x, centers)
+        ran = launches[prec]
+        if min(ran[enc_name], ran[dec_name], ran['rans_reverse'], ran['quantize']) < 1:
+            raise AssertionError(f'10 {prec}: a kernel of the path was not launched: {ran}')
+        if ran['wavefront_forward_encode'] or ran['wavefront_forward_decode']:
+            raise AssertionError(f'10 {prec}: the precision-0 instance ran on the path')
+        if rt['precs'] != {p}:
+            raise AssertionError(f'10 {prec}: streams carry prec bytes {rt["precs"]}')
+        # f32 on the same symbols: the rate that the precision costs.
+        ref = codec_lib.LatentCodec(pc, pc_config, device=dev, prec='f32').encode_batch(
+            rt['syms'], centers)
+        pix = B * IMG_H * IMG_W
+        bpp0 = sum(r.num_bits for r in ref) / pix
+        theo0 = sum(r.theoretical_bits for r in ref) / pix
+        (f_k, s_k), (f_s, s_s), enc_ms, dec_ms, dec = k3_kernel_times(fw, shape, syms_flat,
+                                                                      prec=p)
+        plain_ms, (f_p, s_p) = host_ms(lambda: ck.wavefront_encode_plain(fw, shape, syms_flat,
+                                                                         prec=p))
+        if not (torch.equal(f_k, f_s) and torch.equal(s_k, s_s)):
+            raise AssertionError(f'10 {prec}: layer-parallel tables differ from the scan\'s')
+        if not (torch.equal(f_k, f_p) and torch.equal(s_k, s_p)):
+            raise AssertionError(f'10 {prec}: tables differ from the plain version\'s')
+        if not torch.equal(dec, syms_flat):
+            raise AssertionError(f'10 {prec}: the scan did not recover the symbols')
+        args, n_words = k3_streams(f_k, s_k, shape)
+        for c in (8, 4, 2, 1):          # the scan on clusters of any size
+            if not torch.equal(ck.wavefront_forward(ck.MODE_DECODE, fw, shape, prec=p,
+                                                    cluster=c, **args), syms_flat):
+                raise AssertionError(f'10 {prec}: the scan on clusters of {c} did not '
+                                     'recover the symbols')
+        dec_plain_ms, dec_p = host_ms(lambda: ck.wavefront_forward_plain(
+            ck.MODE_DECODE, fw, shape, prec=p, **args))
+        if not torch.equal(dec_p, syms_flat):
+            raise AssertionError(f'10 {prec}: the plain decode did not recover the symbols')
+        lib_ms = library_logits_ms(pc, centers, syms, torch.bfloat16) if p == 1 else None
+        common = dict(route='cuda', source='imgcomp_cvpr_tpu_torch/csrc/wavefront_forward.cu',
+                      replaces='imgcomp_cvpr_tpu/coding/pallas_kernel.py:1089')
+        act = torch.from_numpy(sched.idx_cm < n).to(dev)
+        enc_err = float(((f_k - f_p).abs() * act).max().item())
+        rows[enc_name] = dict(common, max_abs_err=enc_err, ms=enc_ms, plain_ms=plain_ms,
+                              bound=bound(4 * B * n + table_bytes, flops, H100_BF16_FLOPS),
+                              library_ms=lib_ms)
+        rows[dec_name] = dict(common, max_abs_err=float((dec - syms_flat).abs().max().item()),
+                              ms=dec_ms, plain_ms=dec_plain_ms,
+                              bound=bound(4 * n_words + 4 * B * n, flops, H100_BF16_FLOPS),
+                              library_ms=None)
+        print(f'[10 precision {prec}] container prec {p}, B={B} {IMG_H}x{IMG_W} latent {shape}: '
+              + roundtrip_line(rt) + f'; bpp {100 * (rt["bpp"] / bpp0 - 1):+.4f}% and '
+              f'theory {100 * (rt["theo_bpp"] / theo0 - 1):+.4f}% against f32 on the same '
+              f'symbols ({bpp0:.5f}); launches { {k: v for k, v in ran.items() if v} }; '
+              f'kernel 2: layer-parallel encode (3a) '
+              f'{enc_ms:.3f} ms, scan decode (3b) {dec_ms:.3f} ms (on clusters of 8, 4, 2 and '
+              f'1 too: the same symbols); tables equal to the scan\'s mode-1 tables and to the plain version\'s ({plain_ms:.0f} ms) on all '
+              f'{f_k.numel()} entries; the plain decode of the same streams recovers the '
+              f'symbols ({dec_plain_ms:.0f} ms)'
+              + (f'; ProbClassifier.logits in bf16 {lib_ms:.3f} ms' if lib_ms else ''),
+              flush=True)
+
+    # kf = 64 (weights in device memory) and kf = 8 (the generic instance).
+    L = pc.num_centers
+    sub = syms[:2]
+    sub_flat = syms_flat[:2]
+    for label, spec, kf in (('kf=64', 'cvpr/res_shallow_64', None),
+                            ('kf=8 (generic)', 'cvpr/res_shallow', 8)):
+        cfg, _ = config_lib.parse_spec(spec, 'pc')
+        if kf:
+            cfg = cfg.replace(arch_param__k=kf)
+        pcx = pc_lib.init_params(pc_lib.ProbClassifier(cfg, L, device=dev), seed=0)
+        fwx = cuda_codec.fold_weights(pcx, centers)
+        out = []
+        for prec in ck.PRECS[1:]:
+            p = ck.prec_id(prec)
+            (f_k, s_k), (f_s, s_s), enc_ms, dec_ms, dec = k3_kernel_times(fwx, shape, sub_flat,
+                                                                          prec=p)
+            f_p, s_p = ck.wavefront_encode_plain(fwx, shape, sub_flat, prec=p)
+            if not (torch.equal(f_k, f_s) and torch.equal(s_k, s_s)
+                    and torch.equal(f_k, f_p) and torch.equal(s_k, s_p)):
+                raise AssertionError(f'10 {label} {prec}: tables differ from the scan\'s or '
+                                     'the plain version\'s')
+            lc = codec_lib.LatentCodec(pcx, cfg, device=dev, prec=prec)
+            res = lc.encode_batch(sub, centers)
+            got = lc.decode_batch([r.bitstream for r in res], centers, verify=True)
+            if not (torch.equal(dec, sub_flat) and torch.equal(got.long(), sub.long())):
+                raise AssertionError(f'10 {label} {prec}: round trip not bit-exact')
+            if {codec_lib.stream_prec(r.bitstream) for r in res} != {p}:
+                raise AssertionError(f'10 {label} {prec}: wrong prec byte')
+            out.append(f'{prec}: encode {enc_ms:.3f} ms, decode {dec_ms:.3f} ms')
+        place = 'device memory' if ck.weights_in_device(fwx.w2.shape[-1], L, sched.CQ, sched.T,
+                                                        prec=1) else 'shared memory'
+        print(f'[10 precision {label}] seeded pc {spec}, B=2 latent {shape}, scan weights in '
+              f'{place}: at bf16 and f8 the layer-parallel tables equal the scan\'s and the '
+              f'plain version\'s on every entry, the round trips are CRC-verified bit-exact '
+              f'with their prec byte; ' + '; '.join(out), flush=True)
+
+    # Precision 0 writes the parent's bytes.
+    os.makedirs(PREC_ROOT, exist_ok=True)
+    digests = {}
+    for impl, k in (('cuda', 3), ('cuda_planar', 5)):
+        path = os.path.join(PREC_ROOT, f'ab_{impl}.pkl')
+        with contextlib.redirect_stdout(io.StringIO()):
+            ab_streams.main(['dump', '--impl', impl, '--k', str(k), '--out', path])
+        with open(path, 'rb') as f:
+            d = pickle.load(f)
+        digests[impl] = d['cases'][1]['digest']
+        if d.get('prec', 0) != 0 or digests[impl] != AB_DIGESTS[impl]:
+            raise AssertionError(f'10: {impl} prec-0 streams moved: digest {digests[impl]}, '
+                                 f'the parent\'s {AB_DIGESTS[impl]}')
+    print(f'[10 precision 0] ab_streams\' workload (latent (16, 24, 36), batch 8, seeded): '
+          f'the K=3 (id 5) and K=5 (id 6) prec-0 streams are the parent commit\'s bytes '
+          f'(sha256 {digests["cuda"][:16]}..., {digests["cuda_planar"][:16]}...); phase '
+          f'{time.time() - t_phase:.1f} s', flush=True)
+    return launches
+
+
+def entry_points(dev):
+    """Phase 11: graft_entry_torch's entry points on the card, the launch
+    counts set to 0 just before and read just after. entry(): one forward
+    step of the seeded flagship model on a 64x64 image, against the same
+    step on the CPU (symbols within the AE parity bound of 0.1%, and where
+    they agree, x_out within 1e-2 and bpp within 1e-5 relative);
+    dryrun_multichip(1): one data-parallel train step (NCCL, world 1),
+    EvalModel and a LatentCodec round trip of 2 latents on the card.
+    Returns the launch counts."""
+    import copy
+    import io
+    import torch
+    import graft_entry_torch as entry_lib
+    from imgcomp_cvpr_tpu_torch.ops.kernels import build
+    t_phase = time.time()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    fn, (ae, pc, x) = entry_lib.entry()
+    out, bpp = fn(ae, pc, x)
+    with torch.no_grad():
+        sym = ae.encode(x).symbols
+    torch.cuda.synchronize()
+    ae_c, pc_c = copy.deepcopy(ae).cpu(), copy.deepcopy(pc).cpu()
+    out_c, bpp_c = fn(ae_c, pc_c, x.cpu())
+    with torch.no_grad():
+        sym_c = ae_c.encode(x.cpu()).symbols
+    flips = int((sym.cpu() != sym_c).sum().item())
+    if tuple(out.shape) != (1, 64, 64, 3) or not torch.isfinite(out).all():
+        raise AssertionError(f'11 entry: bad output {tuple(out.shape)}')
+    if flips > 1e-3 * sym.numel():
+        raise AssertionError(f'11 entry: {flips} of {sym.numel()} symbols differ from the CPU')
+    err = (out.cpu() - out_c).abs().max().item()
+    rel = abs(float(bpp) / float(bpp_c) - 1)
+    if flips == 0 and (err > 1e-2 or rel > 1e-5):
+        raise AssertionError(f'11 entry: x_out err {err}, bpp rel {rel} against the CPU')
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        entry_lib.dryrun_multichip(1)
+    line = buf.getvalue().strip().splitlines()[-1]
+    if not line.startswith('dryrun_multichip(1): ok'):
+        raise AssertionError(f'11 dryrun_multichip(1): {line}')
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    for name in ('quantize', 'quantize_bwd', 'wavefront_forward_encode',
+                 'wavefront_forward_decode', 'rans_reverse'):
+        if launches[name] < 1:
+            raise AssertionError(f'11: kernel {name} was not launched by the entry points')
+    print(f'[11 entry points] entry(): x_out {tuple(out.shape)}, bpp {float(bpp):.6f}; against '
+          f'the CPU: {flips} of {sym.numel()} symbols differ, x_out max abs err {err:.3g}, '
+          f'bpp rel {rel:.3g}; {line}; launches '
+          f'{ {k: v for k, v in launches.items() if v} }; phase {time.time() - t_phase:.1f} s',
+          flush=True)
+    return launches
 
 
 def main(argv):
@@ -2232,8 +2546,11 @@ def main(argv):
         print('chip_smoke: no CUDA card (torch.cuda.is_available() is False)',
               file=sys.stderr)
         return 2
+    root = argv[argv.index('--root') + 1] if '--root' in argv else None
     if '--quantizer-only' in argv:
-        return quantizer_only(argv[argv.index('--root') + 1] if '--root' in argv else None)
+        return quantizer_only(root)
+    if '--kernel2-only' in argv:
+        return kernel2_only(root)
     from imgcomp_cvpr_tpu_torch import weights as weights_lib
     from imgcomp_cvpr_tpu_torch.coding import codec as codec_lib
     from imgcomp_cvpr_tpu_torch.coding import cuda_codec, cuda_kernel as ck
@@ -2447,7 +2764,7 @@ def main(argv):
         print(f'[{phase} main path] {model}, B={BATCH} {IMG_H}x{IMG_W} latent {shape}: '
               + roundtrip_line(rt), flush=True)
         if phase == 4:
-            one_pass_mps = rt['mp'] / rt['wall']
+            one_pass_mps, rt4 = rt['mp'] / rt['wall'], rt
 
     # ---- phase 4c: the serving path of bench_torch.py --------------------
     launches['4c'] = serving_path(dev, ae_config, ae, lc, lc5, pc, pc_config, pc5, pc5_config,
@@ -2466,6 +2783,12 @@ def main(argv):
 
     # ---- phase 9: the scan codecs, data-parallel training and validation --
     launches[9] = parallel_path(dev, ae, pc, pc_config, pc5, pc5_config, val_info, step_ms6)
+
+    # ---- phase 10: kernel 2 at bf16 and f8 (container prec 1 and 2) -------
+    launches[10] = precision_path(dev, ae, pc, pc_config, x, centers, rt4, rows)
+
+    # ---- phase 11: the entry points of graft_entry_torch.py ---------------
+    launches[11] = entry_points(dev)
 
     kernels = []
     for phase, name in ((4, 'quantize'), (6, 'quantize_train'), (6, 'quantize_bwd'),
@@ -2501,6 +2824,19 @@ def main(argv):
             kernels[-1].update(device_ms=q['device_ms'], graph_ms=q['graph_ms'],
                                host_us_per_call=q['host_us_per_call'],
                                launches_per_call=q['launches_per_call'])
+        if name in launches[11]:    # the entry points' run (phase 11)
+            kernels[-1]['launches_entry'] = launches[11][name]
+    # Kernel 2 at bf16 and f8: launches from phase 10's main path of each.
+    for prec in ck.PRECS[1:]:
+        for base in ('wavefront_forward_encode', 'wavefront_forward_decode'):
+            name = ck.launch_name(base, prec)
+            r = rows[name]
+            b_ms, b_by = r.pop('bound')
+            kernels.append(dict(name=name, route=r['route'], source=r['source'],
+                                replaces=r['replaces'], launches=launches[10][prec][name],
+                                max_abs_err=r['max_abs_err'], ms=r['ms'],
+                                plain_ms=r['plain_ms'], bound_ms=b_ms, bound_by=b_by,
+                                library_ms=r['library_ms']))
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                             'count': torch.cuda.device_count()}}),

@@ -407,9 +407,17 @@ class LatentCodec:
     ``device`` is one device or a list: with several, a batch is padded to
     a multiple of their count by repeating its last image, split into equal
     pieces, each coded on its device (one coder each), and the pad results
-    are dropped; the streams are those of the unsplit batch."""
+    are dropped; the streams are those of the unsplit batch.
 
-    def __init__(self, pc, pc_config, device='cuda', impl: str = 'auto'):
+    ``prec`` ('f32', 'bf16' or 'f8': the container's prec byte 0, 1, 2) is
+    the operand precision of the 'cuda' codec's encode (kernel 2); None reads
+    $IMGCOMP_PALLAS_PREC at each encode, f32 when it is unset
+    (cuda_codec.encode_prec). A stream decodes at its own precision. The
+    planar and scan codecs write precision 0 only, as the JAX package's
+    planar and XLA codecs do: they ignore the variable and refuse another
+    ``prec``."""
+
+    def __init__(self, pc, pc_config, device='cuda', impl: str = 'auto', prec=None):
         from .. import resolve_device
         if impl not in IMPLS:
             raise ValueError(f'unknown impl {impl!r}; expected one of {IMPLS}')
@@ -424,6 +432,13 @@ class LatentCodec:
             impl = 'cuda_planar'
         self.impl = impl
         self.impl_id = IMPL_IDS[impl]
+        if prec is not None:
+            from .cuda_kernel import prec_id
+            prec = prec_id(prec)
+            if prec and impl != 'cuda':
+                raise ValueError(f'impl {impl} writes precision 0 (f32) only; precision '
+                                 f'{prec} is the K=3 wavefront codec\'s (impl cuda)')
+        self.prec = prec
         self._coders = {}
 
     def coder(self, impl_id: int, device=None):
@@ -446,7 +461,7 @@ class LatentCodec:
         if key not in self._coders:
             if name == 'cuda':
                 from .cuda_codec import CudaCoder
-                self._coders[key] = CudaCoder(self.pc, self.pc_config, dev)
+                self._coders[key] = CudaCoder(self.pc, self.pc_config, dev, self.prec)
             elif name == 'cuda_planar':
                 from .planar_codec import PlanarCoder
                 self._coders[key] = PlanarCoder(self.pc, self.pc_config, dev)

@@ -1,14 +1,15 @@
 """Driver of the K=3 wavefront codec on the card (counterpart of
-imgcomp_cvpr_tpu/coding/pallas_codec.py::PallasCoder, bsub=1, f32).
+imgcomp_cvpr_tpu/coding/pallas_codec.py::PallasCoder at bsub=1, at each of
+its ring precisions f32, bf16 and f8: the container's prec byte 0, 1, 2).
 
 encode: kernel 2's layer-parallel teacher-forced entry -> per-symbol (freq,
 start) -> kernel 3 reverse rANS (x0 = 1 tail packing; a lane whose warmup
 exceeds K_CAP sends the batch back through kernel 3 with x0 = RANS_L) ->
 container v11. decode: parse -> kernel 2's scan (one image over a
-thread-block cluster) with per-lane thresh = lane_totals - k -> CRC checked
-on the device. The symbol checksum and the theoretical bits are
-computed on the device; only the stream words, states and a few scalars
-per image cross to the host.
+thread-block cluster) at the streams' own precision, with per-lane thresh =
+lane_totals - k -> CRC checked on the device. The symbol checksum and the
+theoretical bits are computed on the device; only the stream words, states
+and a few scalars per image cross to the host.
 
 Each direction is split as in the reference (pallas_codec.py:421-625): a
 submit enqueues the device work on the current stream, starts non-blocking
@@ -21,6 +22,7 @@ the next (bench_torch.py's depth-2 pipeline).
 from __future__ import annotations
 
 import functools
+import os
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,6 +35,26 @@ from . import cuda_kernel as ck
 from . import rans
 
 _NO_THRESH = np.iinfo(np.int32).max // 2   # the pull guard never binds
+# The variable that names the encode precision (f32, bf16 or f8) of a coder
+# given none, read as the JAX package's PallasCoder reads it
+# (pallas_codec.py:174-196).
+PREC_ENV = 'IMGCOMP_PALLAS_PREC'
+
+
+def encode_prec(prec=None) -> int:
+    """The prec byte an encode writes: ``prec`` ('f32' / 'bf16' / 'f8' or
+    0 / 1 / 2) when given, else $IMGCOMP_PALLAS_PREC, else 0. The JAX
+    package picks bf16 for even batches, to fit its rings into the TPU's
+    VMEM; the card holds no such ring, and f32 keeps the streams that the
+    port has always written. Raises on an unknown value."""
+    if prec is None:
+        forced = os.environ.get(PREC_ENV)
+        if not forced:
+            return 0
+        if forced not in ck.PRECS:
+            raise ValueError(f'{PREC_ENV}={forced!r}: expected one of {ck.PRECS}')
+        prec = forced
+    return ck.prec_id(prec)
 
 
 def _taps(weight: torch.Tensor, first: bool) -> torch.Tensor:
@@ -92,18 +114,20 @@ def fold_weights(pc: pc_lib.ProbClassifier, centers: torch.Tensor
 
 class FoldCache:
     """The folded weights of the last (context model, centers) pair a coder
-    was given, folded again when either changes. Folding reads weights on
-    the host (pad_constants, the pad value): a wait for the card that a
-    submit must not pay every batch. The key is the centers' values, read
-    on the host (centers given as a CUDA tensor cost one read of their L
-    floats), and each parameter's storage and version counter, which every
-    in-place update (an optimizer step, load_state_dict) moves."""
+    was given, folded again when either changes, and their operands at each
+    precision asked for. Folding reads weights on the host (pad_constants,
+    the pad value): a wait for the card that a submit must not pay every
+    batch. The key is the centers' values, read on the host (centers given
+    as a CUDA tensor cost one read of their L floats), each parameter's
+    storage and version counter, which every in-place update (an optimizer
+    step, load_state_dict) moves, and the precision: ``derive(fold, prec)``
+    makes the operands of a nonzero precision from the float32 fold."""
 
-    def __init__(self, fold_fn):
-        self._fold_fn = fold_fn
-        self._key = self._fold = None
+    def __init__(self, fold_fn, derive=None):
+        self._fold_fn, self._derive = fold_fn, derive
+        self._key, self._folds = None, {}
 
-    def get(self, pc: pc_lib.ProbClassifier, centers, device: torch.device):
+    def get(self, pc: pc_lib.ProbClassifier, centers, device: torch.device, prec: int = 0):
         if isinstance(centers, torch.Tensor):
             host = centers.detach().to('cpu', torch.float32)
         else:
@@ -111,9 +135,13 @@ class FoldCache:
         key = (host.numpy().tobytes(),
                tuple((p.data_ptr(), p._version) for p in pc.parameters()))
         if key != self._key:
-            self._fold = self._fold_fn(pc, host.to(device, copy=True))
+            self._folds = {0: self._fold_fn(pc, host.to(device, copy=True))}
             self._key = key
-        return self._fold
+        if prec not in self._folds:
+            if self._derive is None:
+                raise ValueError(f'precision {prec} has no operands for this coder')
+            self._folds[prec] = self._derive(self._folds[0], prec)
+        return self._folds[prec]
 
 
 def theoretical_bits(fsel: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
@@ -197,6 +225,7 @@ class EncodeHandle(NamedTuple):
     theoretical bits and checksums."""
     latent_shape: Tuple[int, int, int]
     impl_id: int
+    prec: int                           # the container's prec byte
     L: int
     tail: bool
     words: torch.Tensor                 # (B, cap) int32 stream words on the device
@@ -209,7 +238,7 @@ class EncodeHandle(NamedTuple):
 
 def submit_encode(latent_shape, impl_id: int, L: int, reverse: Callable, tail: bool,
                   theo: torch.Tensor, crcs: torch.Tensor, bad, host_syms,
-                  cols: Optional[int]) -> EncodeHandle:
+                  cols: Optional[int], prec: int = 0) -> EncodeHandle:
     """Enqueue the reverse encoder (x0 = 1 with tail packing, else RANS_L)
     and the copies of what serialize needs, and return at once. ``cols`` is
     how many stream words of each image to copy, predicted from the last
@@ -219,7 +248,7 @@ def submit_encode(latent_shape, impl_id: int, L: int, reverse: Callable, tail: b
     words, n_words, states, kwarm = reverse(1 if tail else rans.RANS_L)
     cols = words.shape[1] if cols is None else min(cols, words.shape[1])
     host = tuple(to_host(t) for t in (words[:, :cols], n_words, states, kwarm, theo, crcs))
-    return EncodeHandle(tuple(latent_shape), impl_id, L, tail, words, host,
+    return EncodeHandle(tuple(latent_shape), impl_id, prec, L, tail, words, host,
                         None if bad is None else to_host(bad),
                         reverse if tail else None, host_syms, record_event(words.device))
 
@@ -257,20 +286,20 @@ def finish_encode(h: EncodeHandle, cols_pred: dict) -> Tuple[codec_lib.EncodeRes
             words = _words_after(h, wmax)
         cols_pred[h.latent_shape] = ck._round_up(wmax + wmax // 8, 128)
     return serialize_batch(h.latent_shape, words, n_words, states.view(np.uint32), kwarm,
-                           theo, crcs, tail, h.impl_id, h.host_syms)
+                           theo, crcs, tail, h.impl_id, h.host_syms, h.prec)
 
 
 def serialize_batch(latent_shape, words, n_words, states, kwarm, theo, crcs,
-                    tail: bool, impl_id: int, host_syms=None):
+                    tail: bool, impl_id: int, host_syms=None, prec: int = 0):
     """Host arrays of a reverse encode -> one EncodeResult per image
-    (container v11, precision 0); words (B, >= max n_words) in emission
-    order."""
+    (container v11 with prec byte ``prec``); words (B, >= max n_words) in
+    emission order."""
     results = []
     for i in range(len(n_words)):
         stream = words[i, :n_words[i]][::-1].astype(np.uint32)
         bitstream = codec_lib.serialize_stream(
             latent_shape, stream, states[i], int(crcs[i]), impl_id=impl_id,
-            prec=0, k=kwarm[i] if tail else None)
+            prec=prec, k=kwarm[i] if tail else None)
         results.append(codec_lib.EncodeResult(
             bitstream=bitstream, num_bits=len(bitstream) * 8,
             theoretical_bits=float(theo[i]),
@@ -288,15 +317,28 @@ class ParsedBatch(NamedTuple):
     states: np.ndarray    # (B, R) int32 holding the uint32 entry states
     thresh: np.ndarray    # (B, R) int32 pull thresholds (huge if not tail-packed)
     crcs: Tuple[int, ...]
+    prec: int             # the streams' prec byte
 
 
-def parse_batch(bitstreams: Sequence[bytes], cap_of, totals_of) -> ParsedBatch:
-    """Parse container v11 streams of one latent shape: cap_of(shape) is the
-    word capacity, totals_of(shape) the (r,) active symbols per lane, so
+def parse_batch(bitstreams: Sequence[bytes], cap_of, totals_of,
+                precs: Tuple[int, ...] = (0,)) -> ParsedBatch:
+    """Parse container v11 streams of one latent shape and one precision
+    (a prec byte in ``precs``: the K=3 wavefront codec decodes 0, 1 and 2,
+    the planar and scan codecs write and decode 0 only): cap_of(shape) is
+    the word capacity, totals_of(shape) the (r,) active symbols per lane, so
     a tail-packed lane has thresh = total - k (no pull in its last k)."""
     parsed = [codec_lib.deserialize_stream(bs) for bs in bitstreams]
-    if {codec_lib.stream_prec(bs) for bs in bitstreams} != {0}:
-        raise ValueError('only container precision 0 (f32) is ported')
+    found = {codec_lib.stream_prec(bs) for bs in bitstreams}
+    if len(found) != 1:
+        raise ValueError(f'mixed stream precisions {sorted(found)} in one decode batch')
+    prec = found.pop()
+    if prec not in precs:
+        name = ck.PRECS[prec] if prec < len(ck.PRECS) else 'unknown'
+        why = (' (precisions 1 and 2 are the K=3 wavefront codec\'s, impl id 5)'
+               if prec < len(ck.PRECS) else '')
+        raise ValueError(
+            f'container precision {prec} ({name}) is not decodable here: this codec '
+            f'writes and decodes precision {", ".join(map(str, precs))} only' + why)
     latent_shape = parsed[0][0]
     if any(p[0] != latent_shape for p in parsed):
         raise ValueError('mixed latent shapes in one decode batch')
@@ -315,7 +357,7 @@ def parse_batch(bitstreams: Sequence[bytes], cap_of, totals_of) -> ParsedBatch:
         if k is not None:
             thresh[i] = totals - k.astype(np.int32)
     return ParsedBatch(latent_shape, packed, states.view(np.int32), thresh,
-                       tuple(p[3] for p in parsed))
+                       tuple(p[3] for p in parsed), prec)
 
 
 def upload_parsed(pb: ParsedBatch, cap: int, device: torch.device):
@@ -364,20 +406,26 @@ class CudaCoder:
     """Entropy codec for one context model, wavefront scan on the card
     (kernels 2 and 3); on the CPU the kernels' plain versions run. The
     submit calls enqueue on the current stream and do not wait for the card;
-    the finish calls wait for their own batch's event only."""
+    the finish calls wait for their own batch's event only.
 
-    def __init__(self, pc: pc_lib.ProbClassifier, pc_config, device='cuda'):
+    ``prec`` ('f32' / 'bf16' / 'f8', or the prec byte) is the operand
+    precision of kernel 2 that encode writes; None reads $IMGCOMP_PALLAS_PREC
+    at each encode (encode_prec), f32 when it is unset. Decode runs each
+    batch at its streams' own precision, whatever ``prec`` is."""
+
+    def __init__(self, pc: pc_lib.ProbClassifier, pc_config, device='cuda', prec=None):
         if pc_config.kernel_size != 3:
             raise ValueError('the wavefront codec requires kernel_size 3')
         self.device = resolve_device(device)
         self.pc = pc
         self.L = pc.num_centers
-        self._folds = FoldCache(fold_weights)
+        self.prec = None if prec is None else ck.prec_id(prec)
+        self._folds = FoldCache(fold_weights, ck.operand_weights)
         self._cols = {}        # latent shape -> stream words to copy at submit
 
-    def _prepare(self, latent_shape, centers):
+    def _prepare(self, latent_shape, centers, prec: int = 0):
         return (ck.build_schedule(tuple(latent_shape)),
-                self._folds.get(self.pc, centers, self.device))
+                self._folds.get(self.pc, centers, self.device, prec))
 
     # -- encode ---------------------------------------------------------------
 
@@ -386,13 +434,14 @@ class CudaCoder:
         checksums, the theoretical bits and the copies to pinned buffers.
         symbols: (B, C, H, W) int, a tensor (any device) or numpy; centers:
         (L,) numpy or tensor (see FoldCache)."""
+        prec = encode_prec(self.prec)
         syms, host_syms, bad = device_symbols(symbols, self.L, self.device)
         b = syms.shape[0]
         latent_shape = tuple(int(v) for v in syms.shape[1:])
-        sched, weights = self._prepare(latent_shape, centers)
+        sched, weights = self._prepare(latent_shape, centers, prec)
         syms_flat = syms.reshape(b, -1)
         fsel, ssel = ck.wavefront_forward(ck.MODE_ENCODE, weights, latent_shape,
-                                          true_syms=syms_flat)
+                                          true_syms=syms_flat, prec=prec)
         tail = int(ck.lane_totals(sched).max()) >= codec_lib.TAIL_MIN_LANE_SYMBOLS
         tabs = ck.device_tables(latent_shape, str(self.device))
         active = tabs.idx_cm < int(np.prod(latent_shape))
@@ -400,7 +449,7 @@ class CudaCoder:
             latent_shape, codec_lib.IMPL_CUDA, self.L,
             lambda x0: ck.rans_reverse(fsel, ssel, latent_shape, x0), tail,
             theoretical_bits(fsel, active), checksums(syms_flat), bad, host_syms,
-            self._cols.get(latent_shape))
+            self._cols.get(latent_shape), prec)
 
     def encode_batch_finish(self, handle: EncodeHandle) -> Tuple[codec_lib.EncodeResult, ...]:
         return finish_encode(handle, self._cols)
@@ -412,13 +461,15 @@ class CudaCoder:
 
     def decode_batch_submit(self, bitstreams: Sequence[bytes], centers) -> DecodeHandle:
         """Parse on the host, upload without waiting, enqueue kernel 2's scan
-        and the checksums."""
+        (at the streams' precision) and the checksums."""
         pb = parse_batch(bitstreams, lambda s: ck.build_schedule(s).stream_cap,
-                         lambda s: ck.lane_totals(ck.build_schedule(s)))
-        sched, weights = self._prepare(pb.latent_shape, centers)
+                         lambda s: ck.lane_totals(ck.build_schedule(s)),
+                         precs=tuple(range(len(ck.PRECS))))
+        sched, weights = self._prepare(pb.latent_shape, centers, pb.prec)
         streams, states, thresh = upload_parsed(pb, sched.stream_cap, self.device)
         syms = ck.wavefront_forward(ck.MODE_DECODE, weights, pb.latent_shape,
-                                    streams=streams, init_states=states, thresh=thresh)
+                                    streams=streams, init_states=states, thresh=thresh,
+                                    prec=pb.prec)
         return submit_checks(syms.reshape((len(pb.crcs),) + tuple(pb.latent_shape)), pb.crcs)
 
     def decode_batch_finish(self, handle: DecodeHandle, verify: bool = True,

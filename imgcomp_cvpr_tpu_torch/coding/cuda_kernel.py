@@ -302,6 +302,63 @@ class FoldedWeights(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
+# Operand precisions of kernel 2 (the container's prec byte 0 / 1 / 2)
+# ---------------------------------------------------------------------------
+
+# make_forward's prec values, indexed by the container's prec byte.
+PRECS = ('f32', 'bf16', 'f8')
+# The type the tap inputs of layers 2-4 are rounded to (make_forward's
+# ring_dt); layer 1's q operands are bf16 at precisions 1 and 2 (its r0_dt).
+RING_KIND = (None, 'bf16', 'e4m3')
+# e4m3fn's largest finite value is 448; RNE sends |x| > 464 past it.
+_E4M3_OVERFLOW = 464.0
+
+
+def prec_id(prec) -> int:
+    """A precision as 'f32' / 'bf16' / 'f8' or as its prec byte 0 / 1 / 2 ->
+    the prec byte."""
+    if isinstance(prec, str) and prec in PRECS:
+        return PRECS.index(prec)
+    if isinstance(prec, (int, np.integer)) and not isinstance(prec, bool) \
+            and 0 <= prec < len(PRECS):
+        return int(prec)
+    raise ValueError(f'unknown precision {prec!r}; expected one of {PRECS} or 0, 1, 2')
+
+
+def round_operand(x: torch.Tensor, kind: Optional[str]) -> torch.Tensor:
+    """float32 x rounded to ``kind`` and back to float32, as XLA converts:
+    'bf16' rounds to nearest even; 'e4m3' (float8_e4m3fn) rounds to nearest
+    even with subnormals and gives NaN past the largest finite value (XLA's
+    convert does not saturate, torch's cast saturates on the CPU, so the
+    overflow is set apart here). None returns x."""
+    if kind is None:
+        return x
+    if kind == 'bf16':
+        return x.to(torch.bfloat16).float()
+    if kind == 'e4m3':
+        return torch.where(x.abs() > _E4M3_OVERFLOW, float('nan'),
+                           x.to(torch.float8_e4m3fn).float())
+    raise ValueError(f'unknown operand kind {kind!r}')
+
+
+def operand_weights(weights: FoldedWeights, prec) -> FoldedWeights:
+    """The folded weights as kernel 2 reads them at precision ``prec``
+    (pallas_kernel.py:647-652, 690-696, 1025): at 1 and 2 the layer weights
+    and layer 1's q operands (centers, pad value) in bf16, the all-pad
+    constants k1..k3 (layers 2-4's pad inputs) in the ring's type; the
+    biases stay float32. Rounding twice is rounding once; precision 0
+    returns ``weights``."""
+    p = prec_id(prec)
+    if p == 0:
+        return weights
+    bf, ring = (lambda a: round_operand(a, 'bf16')), RING_KIND[p]
+    w = weights
+    return FoldedWeights(bf(w.w1), w.b1, bf(w.w2), w.b2, bf(w.w3), w.b3, bf(w.w4), w.b4,
+                         round_operand(w.k1, ring), round_operand(w.k2, ring),
+                         round_operand(w.k3, ring), bf(w.pad), bf(w.centers))
+
+
+# ---------------------------------------------------------------------------
 # CDF quantization (plain twin of the kernels' shared __device__ function)
 # ---------------------------------------------------------------------------
 
@@ -358,13 +415,15 @@ def layer_sum(x: torch.Tensor, wf: torch.Tensor, b) -> torch.Tensor:
 
 
 def _layer_step(src: torch.Tensor, taps: torch.Tensor, w: torch.Tensor,
-                b: torch.Tensor) -> torch.Tensor:
+                b: torch.Tensor, kind: Optional[str] = None) -> torch.Tensor:
     """src (B, G+1, cin), taps (nc, ntaps) -> (B, nc, cout) pre-activation,
-    accumulated in the kernel's order (layer_sum). On a card this plain
-    version keeps its loop over the (tap, channel) rows, one launch each:
-    the same bits as layer_sum's cumsum, and the time that PERF.md's kernel
-    table records as kernels 2 and 5's plain versions."""
-    x = src[:, taps.long()]                                # (B, nc, ntaps, cin)
+    accumulated in the kernel's order (layer_sum), the gathered inputs
+    rounded to ``kind`` first (round_operand: kernel 2's precisions round
+    its tap inputs before its sums use them). On a card this plain version
+    keeps its loop over the (tap, channel) rows, one launch each: the same
+    bits as layer_sum's cumsum, and the time that PERF.md's kernel table
+    records as kernels 2 and 5's plain versions."""
+    x = round_operand(src[:, taps.long()], kind)           # (B, nc, ntaps, cin)
     x = x.reshape(x.shape[0], x.shape[1], taps.shape[1] * src.shape[2])   # nc may be 0
     wf = w.reshape(-1, w.shape[-1])
     if x.device.type == 'cpu':
@@ -379,10 +438,13 @@ def _layer_step(src: torch.Tensor, taps: torch.Tensor, w: torch.Tensor,
 def wavefront_forward_plain(mode: int, weights: FoldedWeights,
                             latent_shape: Tuple[int, int, int], *,
                             true_syms=None, streams=None, init_states=None,
-                            thresh=None, return_logits: bool = False):
+                            thresh=None, return_logits: bool = False, prec=0):
     """Plain PyTorch version of kernel 2: a Python loop over the T steps,
     vectorised over the step's cells and the batch, with the kernel's layer
-    and sub-iteration order.
+    and sub-iteration order. At precision ``prec`` (PRECS) the weights and
+    q operands are operand_weights' and layers 2-4 round their tap inputs to
+    RING_KIND; layer 3's skip adds layer 1's float32 output
+    (pallas_kernel.py:828, 836).
 
     encode (mode 1): true_syms (B, n) int -> (freq_sel, start_sel) (B, T, CQ)
     int32 (0 on dead lanes). decode (mode 0): streams (B, W) int32 words,
@@ -394,6 +456,7 @@ def wavefront_forward_plain(mode: int, weights: FoldedWeights,
     n = int(np.prod(sched.latent_shape))
     kf, L = weights.w1.shape[-1], weights.w4.shape[-1]
     B = (true_syms if mode == MODE_ENCODE else streams).shape[0]
+    weights, ring = operand_weights(weights, prec), RING_KIND[prec_id(prec)]
     f32 = torch.float32
     q = torch.empty(B, n + 1, dtype=f32, device=dev)
     q[:, n] = weights.pad
@@ -423,7 +486,7 @@ def wavefront_forward_plain(mode: int, weights: FoldedWeights,
         src = q[:, :, None]
         for li in range(4):
             cells = tabs.cells[li][sl[li]].long()
-            y = _layer_step(src, tabs.taps[li][sl[li]], *layer_w[li])
+            y = _layer_step(src, tabs.taps[li][sl[li]], *layer_w[li], ring if li else None)
             if li == 2:
                 y = y + acts[0][:, tabs.skip[sl[2]].long()]
             else:
@@ -462,17 +525,17 @@ _PLAIN_CHUNK_FLOATS = 1 << 25   # gathered (B, cells, taps * cin) floats a chunk
 
 
 def layer_all_cells(src: torch.Tensor, taps: torch.Tensor, w: torch.Tensor,
-                    b: torch.Tensor) -> torch.Tensor:
+                    b: torch.Tensor, kind: Optional[str] = None) -> torch.Tensor:
     """_layer_step over every cell of a layer, in chunks of cells (the
     gathered taps of a whole Kodak-size layer would take gigabytes).
     taps (N, ntaps) int64 on src's device; b broadcasts against (B, N, cout)
-    or is a per-cell bias (B, N, cout)."""
+    or is a per-cell bias (B, N, cout); ``kind`` as in _layer_step."""
     n_cells = taps.shape[0]
     chunk = max(1, _PLAIN_CHUNK_FLOATS // (src.shape[0] * taps.shape[1] * src.shape[-1]))
     out = []
     for a in range(0, n_cells, chunk):
         bb = b[:, a:a + chunk] if b.dim() == 3 else b
-        out.append(_layer_step(src, taps[a:a + chunk], w, bb))
+        out.append(_layer_step(src, taps[a:a + chunk], w, bb, kind))
     return torch.cat(out, 1)
 
 
@@ -501,13 +564,15 @@ def tables_from_logits(logits: torch.Tensor, idx_cm: torch.Tensor,
 
 
 def wavefront_encode_plain(weights: FoldedWeights, latent_shape: Tuple[int, int, int],
-                           true_syms: torch.Tensor, return_logits: bool = False):
+                           true_syms: torch.Tensor, return_logits: bool = False, prec=0):
     """Plain PyTorch version of kernel 2's layer-parallel encode: all cells
     of layer 1, then 2, 3, 4 through _layer_step (each output the same chain
     of roundings as in the step-ordered plain version, so the tables are
     equal to its), then the CDFs of all (T, CQ) lanes. true_syms (B, n) int
-    -> (freq_sel, start_sel) (B, T, CQ) int32, 0 on dead lanes."""
+    -> (freq_sel, start_sel) (B, T, CQ) int32, 0 on dead lanes. ``prec`` as
+    in wavefront_forward_plain."""
     sched = build_schedule(latent_shape)
+    weights, ring = operand_weights(weights, prec), RING_KIND[prec_id(prec)]
     dev = weights.w1.device
     tabs = device_tables(sched.latent_shape, str(dev))
     B = true_syms.shape[0]
@@ -518,7 +583,7 @@ def wavefront_encode_plain(weights: FoldedWeights, latent_shape: Tuple[int, int,
     consts = (weights.k1, weights.k2, weights.k3)
     act1 = None
     for li in range(4):
-        y = layer_all_cells(src, tabs.taps[li].long(), *layer_w[li])
+        y = layer_all_cells(src, tabs.taps[li].long(), *layer_w[li], ring if li else None)
         if li == 2:
             y = y + act1[:, tabs.skip.long()]
         else:
@@ -543,7 +608,7 @@ class _FwdArgs(ctypes.Structure):
                  ('G1', ctypes.c_int), ('G2', ctypes.c_int), ('G3', ctypes.c_int),
                  ('cluster', ctypes.c_int), ('N1', ctypes.c_int), ('N2', ctypes.c_int),
                  ('N3', ctypes.c_int), ('N4', ctypes.c_int), ('force', ctypes.c_int),
-                 ('params', ctypes.c_void_p)]
+                 ('prec', ctypes.c_int), ('params', ctypes.c_void_p)]
                 + [(f'{k}{l}', ctypes.c_void_p) for l in range(1, 5)
                    for k in ('ptr', 'cells', 'taps')]
                 + [(k, ctypes.c_void_p) for k in (
@@ -567,11 +632,18 @@ MAX_CLUSTER = 8  # blocks an image in the scan: the portable cluster limit
 FORCE_WDEV, FORCE_GENERIC = 1, 2
 
 
+def launch_name(base: str, prec) -> str:
+    """The LAUNCHES counter of kernel 2's entry ``base`` at a precision: the
+    base name at precision 0, with '_bf16' or '_f8' at 1 or 2."""
+    p = prec_id(prec)
+    return base if p == 0 else f'{base}_{PRECS[p]}'
+
+
 def wavefront_forward(mode: int, weights: FoldedWeights,
                       latent_shape: Tuple[int, int, int], *, true_syms=None,
                       streams=None, init_states=None, thresh=None,
                       scan: bool = False, cluster: Optional[int] = None, prof=None,
-                      force: int = 0):
+                      force: int = 0, prec=0):
     """Kernel 2 wrapper. Same contract as wavefront_forward_plain (without
     return_logits). Encode (mode 1) takes the layer-parallel entry, or with
     ``scan`` the step-ordered scan (its consistency oracle: the tables are
@@ -580,20 +652,25 @@ def wavefront_forward(mode: int, weights: FoldedWeights,
     ``prof`` (B, 10) int64 on the device receives the scan's clocks per phase
     and barrier. ``force`` (FORCE_WDEV | FORCE_GENERIC) takes a placement or
     instance the kernel would not choose itself, for comparisons; the tables
-    and symbols are the same bits. A CPU tensor runs the plain versions, a
-    CUDA tensor launches csrc/wavefront_forward.cu."""
+    and symbols are the same bits. ``prec`` (PRECS, or the prec byte) is the
+    operand precision: the kernel's instance of it rounds layers 2-4's tap
+    inputs where its sums use them, and gets the weights as operand_weights
+    rounds them. A CPU tensor runs the plain versions, a CUDA tensor
+    launches csrc/wavefront_forward.cu."""
     if mode not in (MODE_DECODE, MODE_ENCODE):
         raise ValueError(f'mode must be 0 (decode) or 1 (encode), got {mode}')
     parallel = mode == MODE_ENCODE and not scan
+    pid = prec_id(prec)
     dev = weights.w1.device
     if dev.type == 'cpu':
         if parallel:
-            return wavefront_encode_plain(weights, latent_shape, true_syms)
+            return wavefront_encode_plain(weights, latent_shape, true_syms, prec=pid)
         return wavefront_forward_plain(mode, weights, latent_shape,
                                        true_syms=true_syms, streams=streams,
-                                       init_states=init_states, thresh=thresh)
+                                       init_states=init_states, thresh=thresh, prec=pid)
     if dev.type != 'cuda':
         raise ValueError(f'wavefront_forward: unsupported device {dev}')
+    weights = operand_weights(weights, pid)
     sched = build_schedule(latent_shape)
     tabs = device_tables(sched.latent_shape, str(dev))
     n = int(np.prod(sched.latent_shape))
@@ -620,7 +697,7 @@ def wavefront_forward(mode: int, weights: FoldedWeights,
         syms = torch.empty(B, n, dtype=i32, device=dev)
         true_syms = fsel = ssel = dummy
     if cluster is None:
-        cluster = 1 if parallel else scan_cluster(kf, L, sched.CQ, sched.T, B)
+        cluster = 1 if parallel else scan_cluster(kf, L, sched.CQ, sched.T, B, pid)
     if not 1 <= cluster <= MAX_CLUSTER:
         raise ValueError(f'cluster must be in [1, {MAX_CLUSTER}], got {cluster}')
     G = [c.G for c in sched.layers[:3]]
@@ -640,7 +717,7 @@ def wavefront_forward(mode: int, weights: FoldedWeights,
                  cap=cap, G1=G[0], G2=G[1], G3=G[2], cluster=cluster,
                  N1=len(sched.layers[0].cells), N2=len(sched.layers[1].cells),
                  N3=len(sched.layers[2].cells), N4=len(sched.layers[3].cells),
-                 force=force, params=p(params), skip3=p(tabs.skip), slot4=p(tabs.slot4),
+                 force=force, prec=pid, params=p(params), skip3=p(tabs.skip), slot4=p(tabs.slot4),
                  idx_cm=p(tabs.idx_cm), act1=p(acts[0]),
                  act2=p(acts[1]), act3=p(acts[2]), logits=p(logits), qbuf=p(qbuf),
                  true_syms=p(true_syms), fsel=p(fsel), ssel=p(ssel),
@@ -657,48 +734,49 @@ def wavefront_forward(mode: int, weights: FoldedWeights,
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         err = fn(a, build.stream_ptr(dev))
-    build.LAUNCHES['wavefront_forward_encode' if parallel else
-                   'wavefront_forward_encode_scan' if mode == MODE_ENCODE
-                   else 'wavefront_forward_decode'] += 1
+    build.LAUNCHES[launch_name('wavefront_forward_encode' if parallel else
+                               'wavefront_forward_encode_scan' if mode == MODE_ENCODE
+                               else 'wavefront_forward_decode', pid)] += 1
     build.check(err, 'wavefront_forward')
     return (fsel, ssel) if mode == MODE_ENCODE else syms
 
 
 @functools.lru_cache(maxsize=64)
-def max_active_clusters(kf: int, L: int, CQ: int, T: int, cluster: int) -> int:
-    """cudaOccupancyMaxActiveClusters of the scan kernel: how many images
-    the card scans at once with ``cluster`` blocks an image."""
+def max_active_clusters(kf: int, L: int, CQ: int, T: int, cluster: int, prec: int = 0) -> int:
+    """cudaOccupancyMaxActiveClusters of the scan kernel (its instance of
+    precision ``prec``): how many images the card scans at once with
+    ``cluster`` blocks an image."""
     fn = build.load('wavefront_forward').wavefront_max_clusters
-    fn.argtypes = [ctypes.c_int] * 5
+    fn.argtypes = [ctypes.c_int] * 6
     fn.restype = ctypes.c_int
-    out = fn(kf, L, CQ, T, cluster)
+    out = fn(kf, L, CQ, T, cluster, prec_id(prec))
     if out < 0:
         raise RuntimeError(f'cudaOccupancyMaxActiveClusters: cudaError {-out}')
     return out
 
 
 def weights_in_device(kf: int, L: int, CQ: int, T: int, encode: bool = False,
-                      force: int = 0) -> bool:
+                      force: int = 0, prec=0) -> bool:
     """Whether kernel 2's scan (or, with ``encode``, its layer-parallel
     encode) reads the weights from device memory at these widths: they do not
     fit in a block's shared memory beside the rest (kf >= ~39 at L = 6 and
     the Kodak latent), or ``force`` asks for it."""
     fn = build.load('wavefront_forward').wavefront_weights_in_device
-    fn.argtypes = [ctypes.c_int] * 6
+    fn.argtypes = [ctypes.c_int] * 7
     fn.restype = ctypes.c_int
-    out = fn(kf, L, CQ, T, force, int(encode))
+    out = fn(kf, L, CQ, T, force, int(encode), prec_id(prec))
     if out < 0:
         raise RuntimeError(f'wavefront_weights_in_device: cudaError {-out}')
     return bool(out)
 
 
-def scan_cluster(kf: int, L: int, CQ: int, T: int, B: int) -> int:
+def scan_cluster(kf: int, L: int, CQ: int, T: int, B: int, prec: int = 0) -> int:
     """Blocks an image for a scan of B images: the largest cluster size at
     which the card holds all B clusters at once (a cluster lies inside one
     GPC, so an H100 holds 15 clusters of 8 blocks but 17 of 6; a 16th image
     on clusters of 8 would wait for a second wave), else 1."""
     for c in range(MAX_CLUSTER, 1, -1):
-        if max_active_clusters(kf, L, CQ, T, c) >= B:
+        if max_active_clusters(kf, L, CQ, T, c, prec) >= B:
             return c
     return 1
 

@@ -137,6 +137,61 @@ def _encode_reverse_native(sym_sel_freq, sym_sel_start, active, x0):
 
 
 # ---------------------------------------------------------------------------
+# Per-lane twins: one stream per lane (no codec path calls them; the JAX
+# package keeps them as the on-device forms of encode_reverse and
+# scalar_decode)
+# ---------------------------------------------------------------------------
+
+def encode_reverse_scan(freq_sel: torch.Tensor, start_sel: torch.Tensor,
+                        active: torch.Tensor):
+    """Reverse per-lane encode in torch (the JAX package's
+    encode_reverse_scan, a reversed lax.scan): freq_sel / start_sel (T, M)
+    uint32 values, active (T, M) bool, on one device. Returns (words (M, T)
+    int64 in emission order, counts (M,) int64, states (M,) int64 holding
+    uint32 values); lane j's decode-order stream is words[j, :counts[j]]
+    reversed. The bytes of encode_reverse at x0 = RANS_L."""
+    T, M = freq_sel.shape
+    dev = freq_sel.device
+    f_all, s_all = freq_sel.long(), start_sel.long()
+    states = torch.full((M,), RANS_L, dtype=torch.long, device=dev)
+    wptr = torch.zeros(M, dtype=torch.long, device=dev)
+    buf = torch.zeros(M, T, dtype=torch.long, device=dev)
+    lane = torch.arange(M, device=dev)
+    for t in range(T - 1, -1, -1):
+        a = active[t]
+        f = torch.clamp(f_all[t], min=1)
+        emit = a & (states >= (f << WORD_BITS))
+        buf[lane[emit], wptr[emit]] = states[emit] & WORD_MASK
+        states = torch.where(emit, states >> WORD_BITS, states)
+        xn = (((states // f) << SCALE_BITS) + (states % f) + s_all[t]) & MASK32
+        states = torch.where(a, xn, states)
+        wptr = wptr + emit.long()
+    return buf, wptr, states
+
+
+def decode_step(states: torch.Tensor, ptrs: torch.Tensor, streams: torch.Tensor,
+                freq: torch.Tensor, cdf_low: torch.Tensor, active: torch.Tensor):
+    """One per-lane rANS decode step over M lanes (the JAX package's
+    decode_step): states (M,) uint32 values, ptrs (M,) read pointers into
+    streams (M, W) words, freq / cdf_low (M, L) this step's tables, active
+    (M,) bool. Returns (symbols (M,) int64, states (M,) int64, ptrs (M,)
+    int64); an inactive lane keeps its state and pointer and returns 0."""
+    states, ptrs = states.long(), ptrs.long()
+    freq, cdf_low = freq.long(), cdf_low.long()
+    slot = states & (SCALE - 1)
+    sym = (cdf_low <= slot[:, None]).sum(-1) - 1
+    f = torch.gather(freq, -1, sym[:, None])[:, 0]
+    start = torch.gather(cdf_low, -1, sym[:, None])[:, 0]
+    x = (f * (states >> SCALE_BITS) + slot - start) & MASK32
+    need = x < RANS_L
+    pos = torch.clamp(ptrs, 0, streams.shape[1] - 1)
+    word = torch.gather(streams.long(), 1, pos[:, None])[:, 0]
+    x = torch.where(need, ((x << WORD_BITS) | word) & MASK32, x)
+    return (torch.where(active, sym, 0), torch.where(active, x, states),
+            torch.where(active, ptrs + need.long(), ptrs))
+
+
+# ---------------------------------------------------------------------------
 # Interleaved variant, torch twins: R lanes, one shared word stream
 # ---------------------------------------------------------------------------
 

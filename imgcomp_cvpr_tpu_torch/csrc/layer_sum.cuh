@@ -26,10 +26,36 @@
 // another block of the cluster, on another SM, wrote them, and an L1 line
 // could be stale. CG = false uses plain loads (one block per image, or a
 // launch that only reads what earlier launches wrote).
+//
+// P is the type an activation is rounded to where the sum uses it (kernel
+// 2's precisions; pallas_kernel.py make_forward's ring_dt): 0 none (float32,
+// the only instance kernel 5 has), 1 bfloat16, 2 float8_e4m3fn. The
+// products of the rounded inputs and the (host-rounded) weights are exact in
+// float32, so the sum keeps its one order and only its inputs change.
 
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
+
+// x rounded to P's type and back: round to nearest even (e4m3 with its
+// subnormals), and NaN where e4m3fn overflows (|x| > 464 rounds past its
+// largest finite value, 448), as XLA's non-saturating convert gives; the
+// hardware convert saturates, so the overflow is set apart.
+template <int P>
+__device__ __forceinline__ float round_operand(float x) {
+  if constexpr (P == 1) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else if constexpr (P == 2) {
+    const __half_raw h =
+        __nv_cvt_fp8_to_halfraw(__nv_cvt_float_to_fp8(x, __NV_SATFINITE, __NV_E4M3), __NV_E4M3);
+    return fabsf(x) > 464.f ? __int_as_float(0x7fc00000) : __half2float(__half(h));
+  } else {
+    return x;
+  }
+}
 
 template <bool CG>
 __device__ __forceinline__ float load_f(const float* p) {
@@ -90,7 +116,7 @@ __device__ __forceinline__ void load_w(const float* p, float (&w)[CO]) {
 // many warps a scheduler (another warp runs while one waits); in the scan a
 // scheduler has about one warp, a tap's arithmetic (~250 clocks) is shorter
 // than a row's trip to L2, and D = 4 keeps the warp fed.
-template <int CIN, int COUT, int CO, int NT, int M, int D, bool CG, class Row>
+template <int CIN, int COUT, int CO, int NT, int M, int D, bool CG, int P = 0, class Row>
 __device__ __forceinline__ void cell_sum(float (&acc)[M][CO], Row row, const float* w,
                                          int c0) {
 #pragma unroll
@@ -114,12 +140,17 @@ __device__ __forceinline__ void cell_sum(float (&acc)[M][CO], Row row, const flo
         for (int ci = 0; ci < CIN; ++ci) {
           float wv[CO];
           load_w<CO>(wk + ci * COUT, wv);
-          // Explicit round-to-nearest mul and add (no FMA contraction).
+          // Explicit round-to-nearest mul and add (no FMA contraction). An
+          // input is rounded to P's type where it is used, not where it is
+          // loaded: a convert right after the load would wait for it there
+          // and take away the D taps' rows in flight.
 #pragma unroll
-          for (int m = 0; m < M; ++m)
+          for (int m = 0; m < M; ++m) {
+            const float xv = round_operand<P>(x[d][m][ci]);
 #pragma unroll
             for (int j = 0; j < CO; ++j)
-              acc[m][j] = __fadd_rn(acc[m][j], __fmul_rn(x[d][m][ci], wv[j]));
+              acc[m][j] = __fadd_rn(acc[m][j], __fmul_rn(xv, wv[j]));
+          }
         }
         if (k + D < NT)
 #pragma unroll
@@ -166,7 +197,7 @@ __device__ __forceinline__ void stage_rows(float* xs, int ncell, RowOf row_of) {
 }
 
 // Generic instance: output channel c of one cell, any widths.
-template <bool CG, class Row>
+template <bool CG, int P = 0, class Row>
 __device__ __forceinline__ float cell_sum_any(Row row, const float* w, int c, int cin,
                                               int cout, int nt) {
   float acc = 0.f;
@@ -174,7 +205,7 @@ __device__ __forceinline__ float cell_sum_any(Row row, const float* w, int c, in
     const float* x = row(k);
     const float* wk = w + k * cin * cout + c;
     for (int ci = 0; ci < cin; ++ci)
-      acc = __fadd_rn(acc, __fmul_rn(load_f<CG>(x + ci), wk[ci * cout]));
+      acc = __fadd_rn(acc, __fmul_rn(round_operand<P>(load_f<CG>(x + ci)), wk[ci * cout]));
   }
   return acc;
 }

@@ -89,6 +89,20 @@
 // placement or the generic instance where they are not needed (tests, and
 // the comparisons that chip_smoke.py prints).
 //
+// Precisions (FwdArgs::prec, the container's prec byte; template P). The TPU
+// kernel's prec f32 / bf16 / f8 (make_forward's cdt, ring_dt and r0_dt) are
+// three instances of every entry. At 1 (bf16) and 2 (f8) the host rounds the
+// weights and layer 1's q operands (centers, pad value) to bfloat16 and the
+// all-pad constants to the ring's type once (cuda_kernel.operand_weights);
+// layers 2-4 round each tap input to bfloat16 or float8_e4m3fn where the
+// sum uses it (layer_sum.cuh's round_operand, centre tap and pad rows
+// included), and
+// layer 3's skip reads layer 1's float32 output. The activations stay float32
+// in device memory: rounding on read needs no second copy of layer 1 for the
+// skip. Products of bf16 values are exact in float32, so the (tap, channel)
+// order of every sum is that of precision 0, whose instance is the code it
+// was before the other two existed.
+//
 // Bound on the H100: operations, ~8.1 GFLOP per Kodak-size image in f32
 // over the unmasked taps of the four layer grids at kf=24 (chip_smoke.py
 // counts them and prints the measured times). The decode's second figure is
@@ -119,6 +133,7 @@ struct FwdArgs {
   int mode, B, T, n, kf, L, CQ, cap, G1, G2, G3, cluster;
   int N1, N2, N3, N4;
   int force;         // FORCE_WDEV | FORCE_GENERIC, or 0: the host's own choice
+  int prec;          // operand precision, the container's prec byte (0, 1, 2)
   const float* params;
   const int *ptr1, *cells1, *taps1;
   const int *ptr2, *cells2, *taps2;
@@ -181,7 +196,7 @@ __device__ __forceinline__ void prefetch_l1(const void* p) {
 // `nb` blocks' threads in order. CYCLIC = true (the scan): cell r goes to
 // block r % nb, so every block of the cluster gets its share of a step's few
 // cells.
-template <int CIN, int COUT, int CO, int NT, int M, int D, bool CYCLIC, class Emit>
+template <int CIN, int COUT, int CO, int NT, int M, int D, bool CYCLIC, int P, class Emit>
 __device__ __forceinline__ void layer_cells(
     int c0, int nc, const int* __restrict__ taps, const int* __restrict__ out_idx,
     const float* src, int cin, const float* w, const float* bias, int cout, bool relu,
@@ -211,11 +226,11 @@ __device__ __forceinline__ void layer_cells(
     }
     float acc[M][CO];
     if constexpr (CIN > 0) {
-      cell_sum<CIN, COUT, CO, NT, M, D, true>(
+      cell_sum<CIN, COUT, CO, NT, M, D, true, P>(
           acc, [&](int m, int k) { return src + (size_t)tp[m][k] * CIN; }, w, ch);
     } else {
-      acc[0][0] = cell_sum_any<true>([&](int k) { return src + (size_t)tp[0][k] * cin; },
-                                     w, ch, cin, cout, NT);
+      acc[0][0] = cell_sum_any<true, P>([&](int k) { return src + (size_t)tp[0][k] * cin; },
+                                        w, ch, cin, cout, NT);
     }
 #pragma unroll
     for (int m = 0; m < M; ++m) {
@@ -263,8 +278,11 @@ struct StoreRow {
 };
 
 // Layer l (1..3) over cells [c0, c0 + nc) of its list; CO channels a thread
-// (1 in the generic instance, KF == 0).
-template <int KF, int CO, int M, int D, bool CYCLIC>
+// (1 in the generic instance, KF == 0). Layers 2 and 3 round their tap
+// inputs to P's type; layer 1 reads q as stored (the host rounds the centers
+// and the pad value it is made of) and layer 3's skip reads layer 1's
+// float32 output (pallas_kernel.py:828, 836).
+template <int KF, int CO, int M, int D, bool CYCLIC, int P>
 __device__ __forceinline__ void hidden_layer(const FwdArgs& a, const Params& p, int l,
                                              int b, int c0, int nc, int rank, int nb) {
   const int kf = KF ? KF : a.kf;
@@ -273,13 +291,13 @@ __device__ __forceinline__ void hidden_layer(const FwdArgs& a, const Params& p, 
   float* act3 = a.act3 + (size_t)b * (a.G3 + 1) * kf;
   const float* qb = a.qbuf + (size_t)b * (a.n + 1);
   if (l == 1) {
-    layer_cells<(KF ? 1 : 0), KF, CO, NT1, M, D, CYCLIC>(
+    layer_cells<(KF ? 1 : 0), KF, CO, NT1, M, D, CYCLIC, 0>(
         c0, nc, a.taps1, a.cells1, qb, 1, p.w1, p.b1, kf, true, nullptr, nullptr, rank, nb,
         StoreRow{act1, kf});
   } else {
     // Layers 2 and 3 share one instance of the sum (one copy of the code).
     const bool l3 = l == 3;
-    layer_cells<KF, KF, CO, NTO, M, D, CYCLIC>(
+    layer_cells<KF, KF, CO, NTO, M, D, CYCLIC, P>(
         c0, nc, l3 ? a.taps3 : a.taps2, l3 ? a.cells3 : a.cells2, l3 ? act2 : act1, kf,
         l3 ? p.w3 : p.w2, l3 ? p.b3 : p.b2, kf, !l3, l3 ? act1 : nullptr, a.skip3, rank, nb,
         StoreRow{l3 ? act3 : act2, kf});
@@ -287,13 +305,13 @@ __device__ __forceinline__ void hidden_layer(const FwdArgs& a, const Params& p, 
 }
 
 // Layer 4 over cells [c0, c0 + nc): ReLU'd logits to emit(out_idx[j], ...).
-template <int KF, int NL, int CO, int M, int D, bool CYCLIC, class Emit>
+template <int KF, int NL, int CO, int M, int D, bool CYCLIC, int P, class Emit>
 __device__ __forceinline__ void logit_layer(const FwdArgs& a, const Params& p, int b,
                                             int c0, int nc, const int* out_idx, int rank,
                                             int nb, Emit emit) {
   const int kf = KF ? KF : a.kf;
   const float* act3 = a.act3 + (size_t)b * (a.G3 + 1) * kf;
-  layer_cells<KF, NL, CO, NTO, M, D, CYCLIC>(c0, nc, a.taps4, out_idx, act3, kf, p.w4, p.b4, a.L,
+  layer_cells<KF, NL, CO, NTO, M, D, CYCLIC, P>(c0, nc, a.taps4, out_idx, act3, kf, p.w4, p.b4, a.L,
                                        true, nullptr, nullptr, rank, nb, emit);
 }
 
@@ -301,7 +319,7 @@ __device__ __forceinline__ void logit_layer(const FwdArgs& a, const Params& p, i
 // Layer-parallel encode: one launch per layer, then the table launch
 // ---------------------------------------------------------------------------
 
-template <int KF, int NL, int M, bool WG>
+template <int KF, int NL, int M, bool WG, int P>
 __global__ void __launch_bounds__(THREADS) encode_layer_kernel(FwdArgs a, int l) {
   extern __shared__ __align__(16) float sm[];
   const int kf = KF ? KF : a.kf, L = NL ? NL : a.L;
@@ -309,11 +327,11 @@ __global__ void __launch_bounds__(THREADS) encode_layer_kernel(FwdArgs a, int l)
   __syncthreads();
   const int b = blockIdx.y;
   if (l < 4) {
-    hidden_layer<KF, (KF ? 4 : 1), M, 1, false>(a, p, l, b, 0,
+    hidden_layer<KF, (KF ? 4 : 1), M, 1, false, P>(a, p, l, b, 0,
                                           l == 1 ? a.N1 : (l == 2 ? a.N2 : a.N3),
                                           blockIdx.x, gridDim.x);
   } else {
-    logit_layer<KF, NL, (KF ? 2 : 1), M, 1, false>(a, p, b, 0, a.N4, a.cells4, blockIdx.x,
+    logit_layer<KF, NL, (KF ? 2 : 1), M, 1, false, P>(a, p, b, 0, a.N4, a.cells4, blockIdx.x,
                                              gridDim.x,
                                              StoreRow{a.logits + (size_t)b * a.n * L, L});
   }
@@ -358,8 +376,8 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // CO: output channels a thread owns in layers 1-3 (layer 4: at most 2); D:
-// taps' rows in flight (cell_sum).
-template <int KF, int NL, int CO, int D, bool WG>
+// taps' rows in flight (cell_sum); P: the operand precision.
+template <int KF, int NL, int CO, int D, bool WG, int P>
 __global__ void __launch_bounds__(THREADS, 1) wavefront_kernel(FwdArgs a) {
   extern __shared__ __align__(16) float sm[];
   __shared__ int win[RANS_WIN];
@@ -429,7 +447,7 @@ __global__ void __launch_bounds__(THREADS, 1) wavefront_kernel(FwdArgs a) {
   for (int t = 0; t < T; ++t) {
     for (int l = 1; l <= 3; ++l) {
       const int c0 = sp[(l - 1) * (T + 1) + t];
-      hidden_layer<KF, CO, 1, D, true>(a, p, l, b, c0, sp[(l - 1) * (T + 1) + t + 1] - c0, rank,
+      hidden_layer<KF, CO, 1, D, true, P>(a, p, l, b, c0, sp[(l - 1) * (T + 1) + t + 1] - c0, rank,
                                  nb);
       lap(2 * l - 2);
       barrier(l, t);
@@ -437,7 +455,7 @@ __global__ void __launch_bounds__(THREADS, 1) wavefront_kernel(FwdArgs a) {
     }
     {
       const int c0 = sp[3 * (T + 1) + t];
-      logit_layer<KF, NL, CO4, 1, D, true>(a, p, b, c0, sp[3 * (T + 1) + t + 1] - c0, a.slot4, rank,
+      logit_layer<KF, NL, CO4, 1, D, true, P>(a, p, b, c0, sp[3 * (T + 1) + t + 1] - c0, a.slot4, rank,
                                      nb, StoreRow{lg_rank0, L});
     }
     lap(6);
@@ -520,7 +538,8 @@ static size_t scan_smem(int kf, int L, int CQ, int T, bool wdev) {
 }
 
 static bool valid(const FwdArgs& a) {
-  return a.L >= 2 && a.L <= MAX_L && a.kf >= 1 && a.CQ % R == 0 && a.B >= 1;
+  return a.L >= 2 && a.L <= MAX_L && a.kf >= 1 && a.CQ % R == 0 && a.B >= 1 &&
+         a.prec >= 0 && a.prec <= 2;
 }
 
 // Whether `kernel` runs with `smem` bytes of dynamic shared memory on the
@@ -559,17 +578,19 @@ struct ScanChoice {
   bool wdev;
 };
 
-// The scan's instance for these widths and where its weights live:
-// compile-time widths with 4 channels a thread and 2 taps' rows in flight
-// (kf = 24 or 64 at L = 6), or the generic one; the weights in shared memory
-// if they fit (never at kf = 64, L = 6), else in device memory.
-static cudaError_t choose_scan(int kf, int L, int CQ, int T, int force, ScanChoice* c) {
+// The scan's instance for these widths, this precision and where its
+// weights live: compile-time widths with 4 channels a thread and 2 taps'
+// rows in flight (kf = 24 or 64 at L = 6), or the generic one; the weights
+// in shared memory if they fit (never at kf = 64, L = 6), else in device
+// memory.
+template <int P>
+static cudaError_t choose_scan_p(int kf, int L, int CQ, int T, int force, ScanChoice* c) {
   const bool generic = (force & FORCE_GENERIC) || L != 6 || (kf != 24 && kf != 64);
-  const ScanKernel in_smem = generic ? wavefront_kernel<0, 0, 1, 1, false>
-                             : kf == 24 ? wavefront_kernel<24, 6, 4, 2, false> : nullptr;
-  const ScanKernel in_dev = generic ? wavefront_kernel<0, 0, 1, 1, true>
-                            : kf == 24 ? wavefront_kernel<24, 6, 4, 2, true>
-                                       : wavefront_kernel<64, 6, 4, 2, true>;
+  const ScanKernel in_smem = generic ? wavefront_kernel<0, 0, 1, 1, false, P>
+                             : kf == 24 ? wavefront_kernel<24, 6, 4, 2, false, P> : nullptr;
+  const ScanKernel in_dev = generic ? wavefront_kernel<0, 0, 1, 1, true, P>
+                            : kf == 24 ? wavefront_kernel<24, 6, 4, 2, true, P>
+                                       : wavefront_kernel<64, 6, 4, 2, true, P>;
   bool ok = false;
   if (in_smem && !(force & FORCE_WDEV)) {
     const cudaError_t err = fits((const void*)in_smem, scan_smem(kf, L, CQ, T, false), &ok);
@@ -581,12 +602,19 @@ static cudaError_t choose_scan(int kf, int L, int CQ, int T, int force, ScanChoi
   return cudaSuccess;
 }
 
+static cudaError_t choose_scan(int kf, int L, int CQ, int T, int force, int prec,
+                               ScanChoice* c) {
+  if (prec == 1) return choose_scan_p<1>(kf, L, CQ, T, force, c);
+  if (prec == 2) return choose_scan_p<2>(kf, L, CQ, T, force, c);
+  return choose_scan_p<0>(kf, L, CQ, T, force, c);
+}
+
 // The scan (mode 0 decode, mode 1 encode oracle) over clusters of a.cluster
 // blocks an image.
 extern "C" int wavefront_forward(FwdArgs a, cudaStream_t stream) {
   if (!valid(a) || a.cluster < 1 || a.cluster > 8) return (int)cudaErrorInvalidValue;
   ScanChoice c;
-  cudaError_t err = choose_scan(a.kf, a.L, a.CQ, a.T, a.force, &c);
+  cudaError_t err = choose_scan(a.kf, a.L, a.CQ, a.T, a.force, a.prec, &c);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(c.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)c.smem);
@@ -599,11 +627,13 @@ extern "C" int wavefront_forward(FwdArgs a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// How many clusters of `cluster` blocks of the scan the card holds at once
-// (cudaOccupancyMaxActiveClusters), or a negative cudaError.
-extern "C" int wavefront_max_clusters(int kf, int L, int CQ, int T, int cluster) {
+// How many clusters of `cluster` blocks of the scan (its instance of
+// precision `prec`) the card holds at once (cudaOccupancyMaxActiveClusters),
+// or a negative cudaError.
+extern "C" int wavefront_max_clusters(int kf, int L, int CQ, int T, int cluster, int prec) {
+  if (prec < 0 || prec > 2) return -(int)cudaErrorInvalidValue;
   ScanChoice c;
-  cudaError_t err = choose_scan(kf, L, CQ, T, 0, &c);
+  cudaError_t err = choose_scan(kf, L, CQ, T, 0, prec, &c);
   if (err != cudaSuccess) return -(int)err;
   err = cudaFuncSetAttribute(c.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)c.smem);
@@ -616,11 +646,11 @@ extern "C" int wavefront_max_clusters(int kf, int L, int CQ, int T, int cluster)
   return err == cudaSuccess ? num : -(int)err;
 }
 
-template <int KF, int NL, int M, bool WG>
+template <int KF, int NL, int M, bool WG, int P>
 static int launch_encode(const FwdArgs& a, cudaStream_t stream) {
   const size_t smem = WG ? 0 : (size_t)params_size(a.kf, a.L) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      encode_layer_kernel<KF, NL, M, WG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      encode_layer_kernel<KF, NL, M, WG, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int counts[4] = {a.N1, a.N2, a.N3, a.N4};
@@ -630,7 +660,7 @@ static int launch_encode(const FwdArgs& a, cudaStream_t stream) {
     const long items = (long)((counts[l - 1] + M - 1) / M) * groups;
     long blocks = (items + THREADS - 1) / THREADS;
     blocks = blocks < 1 ? 1 : (blocks > per_image ? per_image : blocks);
-    encode_layer_kernel<KF, NL, M, WG>
+    encode_layer_kernel<KF, NL, M, WG, P>
         <<<dim3((unsigned)blocks, a.B), THREADS, smem, stream>>>(a, l);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -644,40 +674,50 @@ static int launch_encode(const FwdArgs& a, cudaStream_t stream) {
 
 // Where the layer-parallel encode keeps its weights: shared memory if they
 // fit and nothing asks otherwise (never at kf = 64, L = 6).
+template <int P>
 static cudaError_t encode_wdev(const FwdArgs& a, bool* wdev) {
   const bool fixed = a.L == 6 && (a.kf == 24 || a.kf == 64) && !(a.force & FORCE_GENERIC);
   *wdev = true;
   if ((a.force & FORCE_WDEV) || (fixed && a.kf == 64)) return cudaSuccess;
   bool ok = false;
-  const cudaError_t err = fits(fixed ? (const void*)encode_layer_kernel<24, 6, 2, false>
-                                     : (const void*)encode_layer_kernel<0, 0, 1, false>,
+  const cudaError_t err = fits(fixed ? (const void*)encode_layer_kernel<24, 6, 2, false, P>
+                                     : (const void*)encode_layer_kernel<0, 0, 1, false, P>,
                                (size_t)params_size(a.kf, a.L) * sizeof(float), &ok);
   *wdev = !ok;
   return err;
+}
+
+template <int P>
+static int encode_p(const FwdArgs& a, cudaStream_t stream) {
+  bool wdev;
+  const cudaError_t err = encode_wdev<P>(a, &wdev);
+  if (err != cudaSuccess) return (int)err;
+  // Compile-time widths: a thread owns 2 cells x 4 channels (layer 4: x 2).
+  if (a.L == 6 && !(a.force & FORCE_GENERIC)) {
+    if (a.kf == 24)
+      return wdev ? launch_encode<24, 6, 2, true, P>(a, stream)
+                  : launch_encode<24, 6, 2, false, P>(a, stream);
+    if (a.kf == 64) return launch_encode<64, 6, 2, true, P>(a, stream);
+  }
+  return wdev ? launch_encode<0, 0, 1, true, P>(a, stream)
+              : launch_encode<0, 0, 1, false, P>(a, stream);
 }
 
 // The layer-parallel teacher-forced encode: 4 layer launches and the table
 // launch on `stream`.
 extern "C" int wavefront_encode(FwdArgs a, cudaStream_t stream) {
   if (!valid(a)) return (int)cudaErrorInvalidValue;
-  bool wdev;
-  const cudaError_t err = encode_wdev(a, &wdev);
-  if (err != cudaSuccess) return (int)err;
-  // Compile-time widths: a thread owns 2 cells x 4 channels (layer 4: x 2).
-  if (a.L == 6 && !(a.force & FORCE_GENERIC)) {
-    if (a.kf == 24)
-      return wdev ? launch_encode<24, 6, 2, true>(a, stream)
-                  : launch_encode<24, 6, 2, false>(a, stream);
-    if (a.kf == 64) return launch_encode<64, 6, 2, true>(a, stream);
-  }
-  return wdev ? launch_encode<0, 0, 1, true>(a, stream) : launch_encode<0, 0, 1, false>(a, stream);
+  if (a.prec == 1) return encode_p<1>(a, stream);
+  if (a.prec == 2) return encode_p<2>(a, stream);
+  return encode_p<0>(a, stream);
 }
 
 // Where the weights of the scan (encode = 0) or of the layer-parallel encode
 // (encode = 1) live for these widths: 1 in device memory, 0 in shared
 // memory, or a negative cudaError.
 extern "C" int wavefront_weights_in_device(int kf, int L, int CQ, int T, int force,
-                                           int encode) {
+                                           int encode, int prec) {
+  if (prec < 0 || prec > 2) return -(int)cudaErrorInvalidValue;
   bool wdev = false;
   cudaError_t err;
   if (encode) {
@@ -685,10 +725,11 @@ extern "C" int wavefront_weights_in_device(int kf, int L, int CQ, int T, int for
     a.kf = kf;
     a.L = L;
     a.force = force;
-    err = encode_wdev(a, &wdev);
+    err = prec == 1 ? encode_wdev<1>(a, &wdev)
+                    : prec == 2 ? encode_wdev<2>(a, &wdev) : encode_wdev<0>(a, &wdev);
   } else {
     ScanChoice c;
-    err = choose_scan(kf, L, CQ, T, force, &c);
+    err = choose_scan(kf, L, CQ, T, force, prec, &c);
     wdev = c.wdev;
   }
   return err == cudaSuccess ? (int)wdev : -(int)err;

@@ -40,6 +40,13 @@ LAUNCHES: Dict[str, int] = {
     'wavefront_forward_encode': 0,
     'wavefront_forward_encode_scan': 0,
     'wavefront_forward_decode': 0,
+    # kernel 2 at precisions 1 and 2 (cuda_kernel.launch_name)
+    'wavefront_forward_encode_bf16': 0,
+    'wavefront_forward_encode_scan_bf16': 0,
+    'wavefront_forward_decode_bf16': 0,
+    'wavefront_forward_encode_f8': 0,
+    'wavefront_forward_encode_scan_f8': 0,
+    'wavefront_forward_decode_f8': 0,
     'rans_reverse': 0,
     'plane_forward_encode': 0,
     'plane_forward_encode_scan': 0,

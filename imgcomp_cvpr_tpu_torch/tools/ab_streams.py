@@ -27,8 +27,11 @@ latent shape, batch 8, centers linspace(-2, 2, L). ``--impl`` is one of the
 port's codecs: ``cuda`` (K=3 wavefront, kernels 2 and 3), ``cuda_planar``
 (planar, kernels 5 and 6) or a scan codec, ``direct``, ``cached`` or ``ring``
 (coding/scan_codec.py, container impl id 7; cached and ring at K=3 only, and
-slow: size the shape down). The port codes at bsub 1 only, so
-``--bsubs`` is [1]; any other value raises.
+slow: size the shape down). The ``cuda`` codec encodes at the precision
+that $IMGCOMP_PALLAS_PREC names (f32 when unset), as the JAX tool's does;
+a dump records it. The port codes at bsub 1 only, so ``--bsubs`` is [1];
+any other value raises. A dump prints the sha256 digest of its streams
+(``digest``), the number that a byte gate can pin.
 
 Each tree runs its own kernels: ops/kernels/build.py keys the libraries to
 the checkout (build/torch_kernels/ beside the package) and to the hash of
@@ -39,6 +42,7 @@ library file names (source hashes) of its tree and the ones it loaded.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import os
 import pickle
 import shutil
@@ -71,8 +75,19 @@ def _check_bsubs(bsubs) -> None:
     bad = sorted(set(bsubs) - set(_PORTED_BSUBS))
     if bad:
         raise ValueError(
-            f'--bsubs {bad}: the port codes at bsub 1 only; lane segments of '
-            'bsub > 1 are ROADMAP.md Queue 2, "What follows" #6')
+            f'--bsubs {bad}: the port codes at bsub 1 only. bsub > 1 packs several '
+            'images into one Pallas instance to fit the TPU\'s VMEM, and the JAX '
+            'package holds its streams bitwise invariant across bsub; the port\'s '
+            'kernels keep no such ring, and their contract is batch-size invariance')
+
+
+def digest(streams) -> str:
+    """sha256 of a batch's streams, each prefixed by its length."""
+    h = hashlib.sha256()
+    for s in streams:
+        h.update(len(s).to_bytes(8, 'little'))
+        h.update(s)
+    return h.hexdigest()
 
 
 def _kernel_libs():
@@ -93,6 +108,9 @@ def cmd_dump(args):
     syms = rng.randint(0, args.L, size=(args.batch,) + shape).astype(np.int8)
     out = {'shape': shape, 'L': args.L, 'k': args.k, 'seed': args.seed,
            'batch': args.batch, 'impl': args.impl, 'cases': {}}
+    if args.impl == 'cuda':
+        from ..coding import cuda_codec
+        out['prec'] = cuda_codec.encode_prec()
     for bsub in args.bsubs:
         codec = codec_lib.LatentCodec(pc, cfg, device=_device(args), impl=args.impl)
         coder = codec.coder(codec.impl_id)
@@ -114,9 +132,11 @@ def cmd_dump(args):
             'streams': [r.bitstream for r in res],
             'volumes': np.asarray(dec),
             'payload': payloads,
+            'digest': digest([r.bitstream for r in res]),
         }
         print(f'  dump: impl={args.impl} bsub={bsub} ok '
-              f'({sum(len(r.bitstream) for r in res)} stream bytes)')
+              f'({sum(len(r.bitstream) for r in res)} stream bytes, digest '
+              f'{out["cases"][bsub]["digest"]})')
     out['kernel_libs'], out['kernel_libs_loaded'] = _kernel_libs()
     with open(args.out, 'wb') as f:
         pickle.dump(out, f)

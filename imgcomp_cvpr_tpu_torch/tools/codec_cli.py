@@ -11,7 +11,9 @@ corruption or a model mismatch) plus a model tag in the header (CRC of the
 center values) so a wrong checkpoint is rejected before a confusing
 mis-decode. The container carries the port's impl id (5 or 6): a file
 written by the JAX package's tool (ids 0-4) is refused, since logits of
-another implementation give other CDFs.
+another implementation give other CDFs. The K=3 codec compresses at the
+operand precision that $IMGCOMP_PALLAS_PREC names (f32, bf16 or f8; f32
+when unset), as the JAX tool does; decompress reads it from the container.
 
 File format (little-endian), the JAX tool's:
     magic b'ICZ1' | u16 orig_h | u16 orig_w | u32 model_tag

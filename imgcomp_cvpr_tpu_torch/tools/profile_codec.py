@@ -8,7 +8,9 @@ JAX tool's keys: AE encode, kernel 2's layer-parallel encode (the forward
 CDF tables, ``cdf_scan_s``), kernel 3 (the reverse rANS, ``reverse_rans_
 scan_s``), the whole encode_batch and decode_batch (kernel 2's scan, the
 container serialize and parse, the CRC checks), AE decode; plus the card
-(nvidia-smi's name and power limit) and each kernel's launches in the run.
+(nvidia-smi's name and power limit), each kernel's launches in the run and
+kernel 2's operand precision (``prec``: $IMGCOMP_PALLAS_PREC, f32 when
+unset, through the codec as the JAX tool's PallasCoder reads it).
 A stage is timed with CUDA events around ``iters`` calls after one warm-up
 (on the CPU, where nothing is built or cached, by the host clock without
 one). ``--trace DIR`` writes a torch.profiler Chrome
@@ -99,9 +101,11 @@ def profile(batch: int = 8, h: int = 512, w: int = 768, iters: int = 3,
 
     sched = ck.build_schedule(latent)
     fold = cuda_codec.fold_weights(pc, centers_dev)
+    prec = cuda_codec.encode_prec()
+    report['prec'] = ck.PRECS[prec]
     syms_flat = syms.reshape(batch, -1).int().contiguous()
     t, (fsel, ssel) = timed(lambda: ck.wavefront_forward(
-        ck.MODE_ENCODE, fold, latent, true_syms=syms_flat))
+        ck.MODE_ENCODE, fold, latent, true_syms=syms_flat, prec=prec))
     report['cdf_scan_s'] = round(t, 4)
     t, _ = timed(lambda: ck.rans_reverse(fsel, ssel, latent, 1))
     report['reverse_rans_scan_s'] = round(t, 4)

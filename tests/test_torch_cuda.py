@@ -787,3 +787,80 @@ def test_validate_real_bpp_and_tail_batches_on_card(cuda_device, tmp_path, pc_sp
              else ('plane_forward_encode', 'plane_reverse', 'plane_forward_decode'))
     assert build.LAUNCHES['quantize'] == 2 and all(build.LAUNCHES[k] >= 2 for k in names)
     assert vd.get_validated_checkpoints() == [1]
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2 at bf16 and f8 (container prec 1 and 2); the entry points
+# ---------------------------------------------------------------------------
+
+# kf = 24 at L = 6 (compile-time widths; weights in shared memory, and in
+# device memory by force), kf = 64 (device memory) and kf = 8 (generic).
+@pytest.mark.parametrize('kf,force', [(24, 0), (24, ck.FORCE_WDEV), (64, 0), (8, 0)])
+@pytest.mark.parametrize('prec', ['bf16', 'f8'])
+def test_precisions_match_plain_on_card(cuda_device, prec, kf, force):
+    """At each precision the layer-parallel tables equal the scan's mode-1
+    tables and the plain version's (on the card) on every entry, the decode
+    recovers the symbols, and the precision's own counters count."""
+    shape = (6, 10, 12)
+    _, _, _, w, syms = _k3_case(cuda_device, shape, kf, 6, 2, seed=7)
+    p = ck.prec_id(prec)
+    build.reset_launches()
+    fk, sk = ck.wavefront_forward(ck.MODE_ENCODE, w, shape, true_syms=syms, prec=prec,
+                                  force=force)
+    fs, ss = ck.wavefront_forward(ck.MODE_ENCODE, w, shape, true_syms=syms, prec=prec,
+                                  scan=True, force=force)
+    fp, sp = ck.wavefront_encode_plain(w, shape, syms, prec=prec)
+    assert torch.equal(fk, fs) and torch.equal(sk, ss)
+    assert torch.equal(fk, fp) and torch.equal(sk, sp)
+    f0, _ = ck.wavefront_forward(ck.MODE_ENCODE, w, shape, true_syms=syms)
+    assert not torch.equal(f0, fk)
+    sched = ck.build_schedule(shape)
+    wd, nw, st, k = ck.rans_reverse(fk, sk, shape, 1)
+    streams = torch.zeros(2, sched.stream_cap, dtype=torch.int32, device=cuda_device)
+    for i in range(2):
+        streams[i, :nw[i]] = wd[i, :nw[i]].flip(0)
+    thresh = (torch.from_numpy(ck.lane_totals(sched)).to(cuda_device)[None] - k).int()
+    dec = ck.wavefront_forward(ck.MODE_DECODE, w, shape, streams=streams, init_states=st,
+                               thresh=thresh.contiguous(), prec=prec, force=force)
+    assert torch.equal(dec, syms)
+    for base in ('wavefront_forward_encode', 'wavefront_forward_encode_scan',
+                 'wavefront_forward_decode'):
+        assert build.LAUNCHES[ck.launch_name(base, p)] == 1
+    for c in (1, 3):                     # clusters of any size: the same symbols
+        assert torch.equal(ck.wavefront_forward(
+            ck.MODE_DECODE, w, shape, streams=streams, init_states=st,
+            thresh=thresh.contiguous(), prec=prec, force=force, cluster=c), syms)
+    assert build.LAUNCHES['wavefront_forward_encode'] == 1     # the f32 call above
+
+
+def test_round_operand_on_card_matches_cpu(cuda_device):
+    x = torch.randn(1 << 18) * 10 ** torch.empty(1 << 18).uniform_(-5, 3)
+    x[:4] = torch.tensor([470.0, -1000.0, 464.0, float('inf')])
+    for kind in ('bf16', 'e4m3'):
+        a = ck.round_operand(x, kind)
+        b = ck.round_operand(x.to(cuda_device), kind).cpu()
+        assert ((a == b) | (a.isnan() & b.isnan())).all()
+
+
+def test_precision_codec_round_trip_on_card(cuda_device):
+    """LatentCodec(prec=...) on the card: each precision's streams carry
+    their byte and decode bit-exactly, through a coder of any precision."""
+    pc, cfg, centers, _, _ = _k3_case(cuda_device, (4, 6, 7), 8, 6, 2, seed=3)
+    syms = torch.from_numpy(np.random.RandomState(3).randint(0, 6, (3, 4, 6, 7))).to(cuda_device)
+    any_prec = codec.LatentCodec(pc, cfg, device=cuda_device)
+    for prec in ('f32', 'bf16', 'f8'):
+        res = codec.LatentCodec(pc, cfg, device=cuda_device, prec=prec).encode_batch(
+            syms, centers)
+        assert {codec.stream_prec(r.bitstream) for r in res} == {ck.prec_id(prec)}
+        dec = any_prec.decode_batch([r.bitstream for r in res], centers)
+        assert torch.equal(dec.long(), syms.long())
+
+
+def test_entry_points_on_card(cuda_device, capsys):
+    import graft_entry_torch as entry_lib
+    fn, (ae, pc, x) = entry_lib.entry()
+    out, bpp = fn(ae, pc, x)
+    assert out.device.type == 'cuda' and tuple(out.shape) == (1, 64, 64, 3)
+    assert torch.isfinite(out).all() and np.isfinite(float(bpp))
+    entry_lib.dryrun_multichip(1)
+    assert 'dryrun_multichip(1): ok' in capsys.readouterr().out

@@ -3,7 +3,8 @@
 A subprocess installs a meta-path finder that refuses ``jax``, ``jaxlib``
 and ``imgcomp_cvpr_tpu`` (not ``imgcomp_cvpr_tpu_torch``), then imports every
 module of the port (the training, data and eval modules included),
-``chip_smoke``, ``train_torch``, ``val_torch`` and ``bench_torch``; any such
+``chip_smoke``, ``train_torch``, ``val_torch``, ``bench_torch`` and
+``graft_entry_torch``; any such
 import raises there. ``flax``, ``optax``,
 ``orbax`` and ``tensorflow`` are refused too (the tools read and write
 TFRecord shards and TF checkpoints in pure Python).
@@ -33,7 +34,8 @@ GUARD = textwrap.dedent('''
             del sys.modules[mod]
     sys.meta_path.insert(0, Refuse())
     import imgcomp_cvpr_tpu_torch as pkg
-    mods = ['chip_smoke', 'train_torch', 'val_torch', 'bench_torch', 'imgcomp_cvpr_tpu_torch']
+    mods = ['chip_smoke', 'train_torch', 'val_torch', 'bench_torch', 'graft_entry_torch',
+            'imgcomp_cvpr_tpu_torch']
     mods += [m.name for m in pkgutil.walk_packages(pkg.__path__, 'imgcomp_cvpr_tpu_torch.')]
     for m in mods:
         importlib.import_module(m)

@@ -220,7 +220,7 @@ def test_ab_streams_dump_compare_cross(tmp_path, capsys):
     capsys.readouterr()
     assert tab.main(['--cpu', 'compare', a, b]) == 1
     assert 'STREAM MISMATCH bsub=1 image=1' in capsys.readouterr().out
-    with pytest.raises(ValueError, match='What follows'):
+    with pytest.raises(ValueError, match='bsub 1 only'):
         tab.main(['--cpu', 'dump'] + _SMALL + ['--bsubs', '1', '2', '--out', a])
 
 
