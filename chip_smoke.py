@@ -7,8 +7,9 @@ card and nvcc; exits non-zero without them). ``python3 chip_smoke.py
 the main path's shapes, held to their plain versions and timed as in the
 kernels line, with the package of DIR (a checkout of another commit) when
 given: two such runs in one call compare two versions on one card.
-``--kernel2-only [--root DIR]`` does the same for kernel 2 (3a, 3b) at each
-operand precision the package has, on the trained K=3 context model.
+``--kernel2-only [--root DIR] [--profile]`` does the same for kernel 2 (3a,
+3b) at each operand precision the package has, on the trained K=3 context
+model, after timing the main path's entropy legs at each precision twice.
 
 Phases, one line each:
   1. the device (torch name, nvidia-smi name and power limit);
@@ -119,14 +120,14 @@ Phases, one line each:
  10. kernel 2 at its operand precisions bf16 and f8 (container prec 1 and
      2) with the trained K=3 model on phase 4's images: per precision the
      main path through LatentCodec(prec=...) (CRC-verified bit-exact, prec
-     byte checked, its own kernel-2 instance launched and the f32 one not),
-     bpp and theory against f32 on the same symbols, kernel 2's
+     byte checked, its own kernel-2 instance launched and the f32 one not)
+     and its legs once more in a second pass, bpp and theory against f32 on the same symbols, kernel 2's
      layer-parallel tables equal to its scan's mode-1 tables and to its
      plain version's on every entry, 3a / 3b ms, the plain decode of the
-     same streams; seeded kf = 64 (weights in device memory) and kf = 8
+     same streams, the operands' bytes over the HBM rate; seeded kf = 64 (weights in device memory) and kf = 8
      (generic instance) context models at B=2 through the same checks;
-     the prec-0 streams of ab_streams' workload at K=3 and K=5 against the
-     parent commit's digests (AB_DIGESTS);
+     the streams of ab_streams' workload at K=3 (prec 0, 1 and 2) and K=5
+     (prec 0) against the parent commit's digests (AB_DIGESTS);
  11. the entry points of graft_entry_torch.py on the card: entry()
      against the same step on the CPU, and dryrun_multichip(1) (an NCCL
      world-1 train step, EvalModel, a LatentCodec round trip);
@@ -332,19 +333,27 @@ def quantizer_only(root):
     return 0
 
 
-def kernel2_only(root):
+def kernel2_only(root, profile=False):
     """`--kernel2-only [--root DIR]`: kernel 2 alone with the trained K=3
     context model at the main path's shape (B=16, latent (32, 64, 96)) on
     seeded symbols (most on the two middle centers, as the trained AE puts
     them): the layer-parallel encode (3a) and the scan decode (3b) at each
-    operand precision the package has, the decode held to the symbols; DIR
-    (a checkout of another commit) supplies the package instead of this
-    one. Prints one line a precision and one JSON line."""
+    operand precision the package has, the decode held to the symbols, and
+    a sha256 of each precision's tables and of the streams kernel 3 writes
+    from them (two checkouts whose digests agree wrote the same bytes).
+    First, before any of that, the main path (main_path, LatentCodec at
+    each precision, f32 first, on phase 4's images) twice a precision: the
+    entropy encode and decode legs of its first pass in the process and of
+    a second; with `--profile` the first pass of each precision runs under
+    torch.profiler, which prints its 8 operators of most host time. DIR (a
+    checkout of another commit) supplies the package instead of this one.
+    Prints one line a precision and one JSON line."""
+    import hashlib
     import torch
     if root:
         sys.path.insert(0, os.path.abspath(root))
     from imgcomp_cvpr_tpu_torch import weights as weights_lib
-    from imgcomp_cvpr_tpu_torch.coding import cuda_codec, cuda_kernel as ck
+    from imgcomp_cvpr_tpu_torch.coding import codec as codec_lib, cuda_codec, cuda_kernel as ck
     from imgcomp_cvpr_tpu_torch.models import autoencoder as ae_lib
     from imgcomp_cvpr_tpu_torch.models import probclass as pc_lib
     from imgcomp_cvpr_tpu_torch.ops.kernels import build
@@ -358,6 +367,25 @@ def kernel2_only(root):
     ae = ae_lib.CVPRAutoencoder(ae_config, device=dev)
     pc = pc_lib.ProbClassifier(pc_config, ae_config.num_centers, device=dev)
     ae, pc = weights_lib.load_trained(ASSET, ae, pc, device=dev)
+    precs = getattr(ck, 'PRECS', ('f32',))
+    x = torch.from_numpy(natural_images(np.random.RandomState(0), BATCH, IMG_H, IMG_W)).to(dev)
+    legs = {}
+    for prec in precs:
+        lc = codec_lib.LatentCodec(pc, pc_config, device=dev, prec=prec)
+        passes = []
+        for i in range(2):
+            if profile and i == 0:
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as pr:
+                    passes.append(main_path(ae, lc, x, ae.encoder.centers.detach())[1]['legs'])
+                print(f'[k2 {prec} profile of the first pass]\n' + pr.key_averages().table(
+                    sort_by='self_cpu_time_total', row_limit=8), flush=True)
+            else:
+                passes.append(main_path(ae, lc, x, ae.encoder.centers.detach())[1]['legs'])
+        legs[prec] = {k: [ps[i] for ps in passes] for i, k in ((1, 'entropy_encode_ms'),
+                                                               (2, 'entropy_decode_ms'))}
+        print(f'[k2 {prec} main path] entropy encode {passes[0][1]:.3f} ms then '
+              f'{passes[1][1]:.3f}, decode {passes[0][2]:.3f} then {passes[1][2]:.3f}'
+              + (' (the first pass profiled)' if profile else ''), flush=True)
     shape = (ae_config.num_chan_bn, IMG_H // 8, IMG_W // 8)
     n = int(np.prod(shape))
     rng = np.random.RandomState(0)
@@ -365,7 +393,7 @@ def kernel2_only(root):
     syms = syms.int().to(dev)
     fw = cuda_codec.fold_weights(pc, ae.encoder.centers.detach())
     out = {}
-    for prec in getattr(ck, 'PRECS', ('f32',)):
+    for prec in precs:
         kw = {} if prec == 'f32' else {'prec': prec}
         f, s = ck.wavefront_forward(ck.MODE_ENCODE, fw, shape, true_syms=syms, **kw)
         enc_ms = cuda_ms(lambda: ck.wavefront_forward(ck.MODE_ENCODE, fw, shape,
@@ -375,9 +403,15 @@ def kernel2_only(root):
             raise AssertionError(f'kernel 2 at {prec}: the scan did not recover the symbols')
         dec_ms = cuda_ms(lambda: ck.wavefront_forward(ck.MODE_DECODE, fw, shape, **args), 3)
         bits = float(-torch.log2(f.double().clamp(min=1) / 65536).sum().item())
-        out[prec] = dict(encode_ms=enc_ms, decode_ms=dec_ms, theory_bits=bits)
+        digests = {k: hashlib.sha256(b''.join(t.cpu().numpy().tobytes() for t in ts)).hexdigest()
+                   for k, ts in (('tables', (f, s)), ('streams', (args['streams'],
+                                                                  args['init_states'],
+                                                                  args['thresh'])))}
+        out[prec] = dict(encode_ms=enc_ms, decode_ms=dec_ms, theory_bits=bits, **digests,
+                         main_path=legs[prec])
         print(f'[k2 {prec}] 3a encode {enc_ms:.3f} ms, 3b decode {dec_ms:.3f} ms, theory '
-              f'bits {bits:.0f}', flush=True)
+              f'bits {bits:.0f}, tables sha256 {digests["tables"][:16]}, streams sha256 '
+              f'{digests["streams"][:16]}', flush=True)
     print(json.dumps({'root': root or '.', 'device': torch.cuda.get_device_name(0),
                       'kernel2': out}), flush=True)
     return 0
@@ -2323,13 +2357,37 @@ def k3_flops(sched, fw, B):
     return 2 * macs * B
 
 
-# The prec-0 streams of ab_streams' default workload (latent (16, 24, 36),
-# batch 8, seeded random-init context model and symbols), sha256 of the
-# batch (ab_streams.digest) as the parent commit of the bf16 / f8 instances
-# wrote them on an H100: kernels 2 and 3 (cuda, K=3) and 5 and 6
-# (cuda_planar, K=5). Precisions 1 and 2 must not move a byte of them.
-AB_DIGESTS = {'cuda': 'd2a2e7e149d8cf0748cabe87c500d333ec18494cf7e8c024e97d17fc9b0a3078',
-              'cuda_planar': '2e1de80d34049fb433d94689d77d6de79351492fcc598e72dad30ab45726c530'}
+# The streams of ab_streams' default workload (latent (16, 24, 36), batch 8,
+# seeded random-init context model and symbols), sha256 of the batch
+# (ab_streams.digest), as the parent commit of a change to kernel 2 wrote
+# them on an H100, by (impl, precision): kernels 2 and 3 (cuda, K=3) at
+# prec 0, 1 and 2 ($IMGCOMP_PALLAS_PREC), and 5 and 6 (cuda_planar, K=5) at
+# prec 0. The prec-0 digests date from before the bf16 / f8 instances, the
+# prec-1 and prec-2 ones from before their operands were stored at their own
+# precision; neither change was to move a byte.
+AB_DIGESTS = {
+    ('cuda', 'f32'): 'd2a2e7e149d8cf0748cabe87c500d333ec18494cf7e8c024e97d17fc9b0a3078',
+    ('cuda', 'bf16'): '49fad3265bc642c8daee63ed65d9117f23af32d4eddd8a0474ecaa9630e55051',
+    ('cuda', 'f8'): '6f4be8a2c6a72407c578d2e19be4d3c2d9ee5ee3f7f9bab950b6bc5705f0eb2e',
+    ('cuda_planar', 'f32'): '2e1de80d34049fb433d94689d77d6de79351492fcc598e72dad30ab45726c530'}
+
+
+def operand_bytes(sched, B, kf, L, prec, decode, n_words=0):
+    """Bytes of kernel 2's operands at precision 1 or 2, at their storage
+    types (cuda_kernel's ACT_DTYPE / Q_DTYPE), each written once and read
+    once: q, the three hidden layers' activations and layer 1's float32
+    copy, then for the encode the logits, the symbols and the tables, for
+    the decode the stream words and the symbols. A computed floor on the
+    memory traffic of a design that passes every layer through device
+    memory, which both entries do (bound_ms counts inputs and outputs
+    only); phase 10 prints it, the kernels line does not carry it."""
+    n = int(np.prod(sched.latent_shape))
+    acts = sum(B * (c.G + 1) * kf for c in sched.layers[:3])
+    total = (B * (n + 1) * 2 + 2 * acts * (2, 1)[prec - 1]
+             + 2 * B * (sched.layers[0].G + 1) * kf * 4)
+    if decode:
+        return total + 4 * n_words + 4 * B * n
+    return total + 2 * 4 * B * n * L + 4 * B * n + 2 * 4 * B * sched.T * sched.CQ
 
 
 def precision_path(dev, ae, pc, pc_config, x, centers, rt4, rows):
@@ -2339,7 +2397,8 @@ def precision_path(dev, ae, pc, pc_config, x, centers, rt4, rows):
     96)). Each precision: the main path through LatentCodec(prec=...) with
     the launch counts set to 0 just before and read just after (its
     kernel-2 instance must launch, the f32 one must not), CRC-verified
-    bit-exact, the streams' prec byte checked, leg ms, bpp and real/theory
+    bit-exact, the streams' prec byte checked, leg ms (and those of a second
+    pass, without the precision's first use), bpp and real/theory
     overhead beside phase 4's f32; kernel 2's layer-parallel tables equal to
     its scan's mode-1 tables and to its plain version's on every entry, its
     times (3a, 3b) and the plain decode of the same streams. Then a seeded
@@ -2379,6 +2438,8 @@ def precision_path(dev, ae, pc, pc_config, x, centers, rt4, rows):
             raise AssertionError(f'10 {prec}: the precision-0 instance ran on the path')
         if rt['precs'] != {p}:
             raise AssertionError(f'10 {prec}: streams carry prec bytes {rt["precs"]}')
+        # The same pass again: what of the first was the precision's first use.
+        warm = main_path(ae, lc, x, centers)[1]['legs']
         # f32 on the same symbols: the rate that the precision costs.
         ref = codec_lib.LatentCodec(pc, pc_config, device=dev, prec='f32').encode_batch(
             rt['syms'], centers)
@@ -2410,6 +2471,7 @@ def precision_path(dev, ae, pc, pc_config, x, centers, rt4, rows):
                       replaces='imgcomp_cvpr_tpu/coding/pallas_kernel.py:1089')
         act = torch.from_numpy(sched.idx_cm < n).to(dev)
         enc_err = float(((f_k - f_p).abs() * act).max().item())
+        kf, L = fw.w2.shape[-1], fw.w4.shape[-1]
         rows[enc_name] = dict(common, max_abs_err=enc_err, ms=enc_ms, plain_ms=plain_ms,
                               bound=bound(4 * B * n + table_bytes, flops, H100_BF16_FLOPS),
                               library_ms=lib_ms)
@@ -2417,15 +2479,21 @@ def precision_path(dev, ae, pc, pc_config, x, centers, rt4, rows):
                               ms=dec_ms, plain_ms=dec_plain_ms,
                               bound=bound(4 * n_words + 4 * B * n, flops, H100_BF16_FLOPS),
                               library_ms=None)
+        floor_ms = [operand_bytes(sched, B, kf, L, p, dec, n_words) / H100_BYTES_PER_S * 1e3
+                    for dec in (False, True)]
         print(f'[10 precision {prec}] container prec {p}, B={B} {IMG_H}x{IMG_W} latent {shape}: '
-              + roundtrip_line(rt) + f'; bpp {100 * (rt["bpp"] / bpp0 - 1):+.4f}% and '
+              + roundtrip_line(rt) + f' (a second pass: entropy_encode {warm[1]:.3f}, '
+              f'entropy_decode {warm[2]:.3f})'
+              + f'; bpp {100 * (rt["bpp"] / bpp0 - 1):+.4f}% and '
               f'theory {100 * (rt["theo_bpp"] / theo0 - 1):+.4f}% against f32 on the same '
               f'symbols ({bpp0:.5f}); launches { {k: v for k, v in ran.items() if v} }; '
               f'kernel 2: layer-parallel encode (3a) '
               f'{enc_ms:.3f} ms, scan decode (3b) {dec_ms:.3f} ms (on clusters of 8, 4, 2 and '
               f'1 too: the same symbols); tables equal to the scan\'s mode-1 tables and to the plain version\'s ({plain_ms:.0f} ms) on all '
               f'{f_k.numel()} entries; the plain decode of the same streams recovers the '
-              f'symbols ({dec_plain_ms:.0f} ms)'
+              f'symbols ({dec_plain_ms:.0f} ms); operands at their storage types written '
+              f'and read once over the HBM rate (computed, operand_bytes): 3a '
+              f'{floor_ms[0]:.3f} ms, 3b {floor_ms[1]:.3f} ms'
               + (f'; ProbClassifier.logits in bf16 {lib_ms:.3f} ms' if lib_ms else ''),
               flush=True)
 
@@ -2465,23 +2533,33 @@ def precision_path(dev, ae, pc, pc_config, x, centers, rt4, rows):
               f'plain version\'s on every entry, the round trips are CRC-verified bit-exact '
               f'with their prec byte; ' + '; '.join(out), flush=True)
 
-    # Precision 0 writes the parent's bytes.
+    # Every precision writes the parent's bytes.
     os.makedirs(PREC_ROOT, exist_ok=True)
     digests = {}
-    for impl, k in (('cuda', 3), ('cuda_planar', 5)):
-        path = os.path.join(PREC_ROOT, f'ab_{impl}.pkl')
-        with contextlib.redirect_stdout(io.StringIO()):
-            ab_streams.main(['dump', '--impl', impl, '--k', str(k), '--out', path])
-        with open(path, 'rb') as f:
-            d = pickle.load(f)
-        digests[impl] = d['cases'][1]['digest']
-        if d.get('prec', 0) != 0 or digests[impl] != AB_DIGESTS[impl]:
-            raise AssertionError(f'10: {impl} prec-0 streams moved: digest {digests[impl]}, '
-                                 f'the parent\'s {AB_DIGESTS[impl]}')
-    print(f'[10 precision 0] ab_streams\' workload (latent (16, 24, 36), batch 8, seeded): '
-          f'the K=3 (id 5) and K=5 (id 6) prec-0 streams are the parent commit\'s bytes '
-          f'(sha256 {digests["cuda"][:16]}..., {digests["cuda_planar"][:16]}...); phase '
-          f'{time.time() - t_phase:.1f} s', flush=True)
+    env0 = os.environ.get(cuda_codec.PREC_ENV)
+    try:
+        for (impl, prec), want in AB_DIGESTS.items():
+            path = os.path.join(PREC_ROOT, f'ab_{impl}_{prec}.pkl')
+            os.environ[cuda_codec.PREC_ENV] = prec
+            with contextlib.redirect_stdout(io.StringIO()):
+                ab_streams.main(['dump', '--impl', impl, '--k', '3' if impl == 'cuda' else '5',
+                                 '--out', path])
+            with open(path, 'rb') as f:
+                d = pickle.load(f)
+            got = digests[impl, prec] = d['cases'][1]['digest']
+            if d.get('prec', 0) != ck.prec_id(prec) or got != want:
+                raise AssertionError(f'10: {impl} {prec} streams moved: digest {got}, the '
+                                     f'parent\'s {want}')
+    finally:
+        if env0 is None:
+            os.environ.pop(cuda_codec.PREC_ENV, None)
+        else:
+            os.environ[cuda_codec.PREC_ENV] = env0
+    print(f'[10 precisions 0-2] ab_streams\' workload (latent (16, 24, 36), batch 8, seeded): '
+          f'the K=3 (id 5) streams at prec 0, 1 and 2 and the K=5 (id 6) prec-0 streams are '
+          f'the parent commit\'s bytes (sha256 '
+          + ', '.join(f'{i} {pr} {v[:16]}...' for (i, pr), v in digests.items())
+          + f'); phase {time.time() - t_phase:.1f} s', flush=True)
     return launches
 
 
@@ -2550,7 +2628,7 @@ def main(argv):
     if '--quantizer-only' in argv:
         return quantizer_only(root)
     if '--kernel2-only' in argv:
-        return kernel2_only(root)
+        return kernel2_only(root, '--profile' in argv)
     from imgcomp_cvpr_tpu_torch import weights as weights_lib
     from imgcomp_cvpr_tpu_torch.coding import codec as codec_lib
     from imgcomp_cvpr_tpu_torch.coding import cuda_codec, cuda_kernel as ck

@@ -307,6 +307,10 @@ class FoldedWeights(NamedTuple):
 
 # make_forward's prec values, indexed by the container's prec byte.
 PRECS = ('f32', 'bf16', 'f8')
+# How kernel 2 stores its operands at each precision (csrc/layer_sum.cuh's
+# Operand<P>): the activations that later layers read as taps, and q.
+ACT_DTYPE = (torch.float32, torch.bfloat16, torch.float8_e4m3fn)
+Q_DTYPE = (torch.float32, torch.bfloat16, torch.bfloat16)
 # The type the tap inputs of layers 2-4 are rounded to (make_forward's
 # ring_dt); layer 1's q operands are bf16 at precisions 1 and 2 (its r0_dt).
 RING_KIND = (None, 'bf16', 'e4m3')
@@ -362,12 +366,33 @@ def operand_weights(weights: FoldedWeights, prec) -> FoldedWeights:
 # CDF quantization (plain twin of the kernels' shared __device__ function)
 # ---------------------------------------------------------------------------
 
+def exp_host(x: torch.Tensor) -> torch.Tensor:
+    """exp of a float32 CPU tensor, each element a function of that element
+    alone: numpy's float64 exp, rounded to float32.
+
+    torch.exp does not give that on the CPU. ATen hands each OpenMP thread
+    its share of the tensor and each calls MKL's vmsExp, and MKL picks its
+    code path at its first call in a process. When two threads make that
+    first call at once, one of them can run its share through MKL's AVX2
+    path at EP accuracy (relative error up to 1.4e-4) instead of the
+    AVX-512 path at HA accuracy (within 1 ulp), so the CDFs of the first
+    large exp in a process (the encode's tables) could differ from those of
+    the decode's later, smaller ones. numpy calls no MKL and no threads.
+    The result equals MKL's HA value but on up to ~2 elements in a
+    thousand, where the two are neighbouring floats (1 ulp apart) and this
+    one is the nearer to exp."""
+    return torch.from_numpy(np.exp(x.detach().numpy().astype(np.float64)).astype(np.float32))
+
+
 def logits_to_cdf(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., L) f32 logits -> (freq, cdf_low) int64: softmax with a
     sequential sum over L, then rans.quantize_cdf. The same order of
-    operations as cdf_from_logits in csrc/wavefront_forward.cu."""
+    operations as cdf_from_logits in csrc/wavefront_forward.cu; on the CPU
+    the exponentials are exp_host's, on a card torch.exp's, which is the
+    kernels' expf."""
     m = logits.max(-1, keepdim=True).values
-    e = torch.exp(logits - m)
+    d = logits - m
+    e = exp_host(d) if d.device.type == 'cpu' else torch.exp(d)
     s = e[..., 0]
     for l in range(1, e.shape[-1]):
         s = s + e[..., l]
@@ -418,8 +443,8 @@ def _layer_step(src: torch.Tensor, taps: torch.Tensor, w: torch.Tensor,
                 b: torch.Tensor, kind: Optional[str] = None) -> torch.Tensor:
     """src (B, G+1, cin), taps (nc, ntaps) -> (B, nc, cout) pre-activation,
     accumulated in the kernel's order (layer_sum), the gathered inputs
-    rounded to ``kind`` first (round_operand: kernel 2's precisions round
-    its tap inputs before its sums use them). On a card this plain version
+    rounded to ``kind`` first (round_operand: the values kernel 2 stores
+    and its sums read at its precisions). On a card this plain version
     keeps its loop over the (tap, channel) rows, one launch each: the same
     bits as layer_sum's cumsum, and the time that PERF.md's kernel table
     records as kernels 2 and 5's plain versions."""
@@ -612,7 +637,8 @@ class _FwdArgs(ctypes.Structure):
                 + [(f'{k}{l}', ctypes.c_void_p) for l in range(1, 5)
                    for k in ('ptr', 'cells', 'taps')]
                 + [(k, ctypes.c_void_p) for k in (
-                    'skip3', 'slot4', 'idx_cm', 'act1', 'act2', 'act3', 'logits', 'qbuf',
+                    'skip3', 'slot4', 'idx_cm', 'act1', 'act2', 'act3', 'act1f', 'logits',
+                    'qbuf',
                     'true_syms', 'fsel', 'ssel', 'streams', 'init_states',
                     'thresh', 'syms_out', 'prof')])
 
@@ -653,10 +679,11 @@ def wavefront_forward(mode: int, weights: FoldedWeights,
     and barrier. ``force`` (FORCE_WDEV | FORCE_GENERIC) takes a placement or
     instance the kernel would not choose itself, for comparisons; the tables
     and symbols are the same bits. ``prec`` (PRECS, or the prec byte) is the
-    operand precision: the kernel's instance of it rounds layers 2-4's tap
-    inputs where its sums use them, and gets the weights as operand_weights
-    rounds them. A CPU tensor runs the plain versions, a CUDA tensor
-    launches csrc/wavefront_forward.cu."""
+    operand precision: the kernel's instance of it stores q and the
+    activations at ACT_DTYPE / Q_DTYPE (layer 1 in float32 too, for layer
+    3's skip), and gets the weights as operand_weights rounds them. A CPU
+    tensor runs the plain versions, a CUDA tensor launches
+    csrc/wavefront_forward.cu."""
     if mode not in (MODE_DECODE, MODE_ENCODE):
         raise ValueError(f'mode must be 0 (decode) or 1 (encode), got {mode}')
     parallel = mode == MODE_ENCODE and not scan
@@ -700,16 +727,21 @@ def wavefront_forward(mode: int, weights: FoldedWeights,
         cluster = 1 if parallel else scan_cluster(kf, L, sched.CQ, sched.T, B, pid)
     if not 1 <= cluster <= MAX_CLUSTER:
         raise ValueError(f'cluster must be in [1, {MAX_CLUSTER}], got {cluster}')
+    # The operands at their storage type (already rounded to it: exact).
     G = [c.G for c in sched.layers[:3]]
-    acts = [torch.empty(B, g + 1, kf, dtype=f32, device=dev) for g in G]
+    acts = [torch.empty(B, g + 1, kf, dtype=ACT_DTYPE[pid], device=dev) for g in G]
     for a_l, k in zip(acts, (weights.k1, weights.k2, weights.k3)):
         a_l[:, -1] = k                        # the all-pad constant rows
+    act1f = acts[0]
+    if pid:                                   # layer 1 in float32 for the skip
+        act1f = torch.empty(B, G[0] + 1, kf, dtype=f32, device=dev)
+        act1f[:, -1] = weights.k1
     if parallel:
         qbuf = torch.cat([weights.centers[true_syms.long()],
-                          weights.pad.expand(B, 1)], 1).contiguous()
+                          weights.pad.expand(B, 1)], 1).to(Q_DTYPE[pid]).contiguous()
         logits = torch.empty(B, n, L, dtype=f32, device=dev)
     else:
-        qbuf = torch.empty(B, n + 1, dtype=f32, device=dev)
+        qbuf = torch.empty(B, n + 1, dtype=Q_DTYPE[pid], device=dev)
         qbuf[:, n] = weights.pad
         logits = torch.zeros(1, dtype=f32, device=dev)   # stays on the chip
     p = build.ptr
@@ -718,8 +750,8 @@ def wavefront_forward(mode: int, weights: FoldedWeights,
                  N1=len(sched.layers[0].cells), N2=len(sched.layers[1].cells),
                  N3=len(sched.layers[2].cells), N4=len(sched.layers[3].cells),
                  force=force, prec=pid, params=p(params), skip3=p(tabs.skip), slot4=p(tabs.slot4),
-                 idx_cm=p(tabs.idx_cm), act1=p(acts[0]),
-                 act2=p(acts[1]), act3=p(acts[2]), logits=p(logits), qbuf=p(qbuf),
+                 idx_cm=p(tabs.idx_cm), act1=p(acts[0]), act2=p(acts[1]),
+                 act3=p(acts[2]), act1f=p(act1f), logits=p(logits), qbuf=p(qbuf),
                  true_syms=p(true_syms), fsel=p(fsel), ssel=p(ssel),
                  streams=p(streams), init_states=p(init_states),
                  thresh=p(thresh), syms_out=p(syms),

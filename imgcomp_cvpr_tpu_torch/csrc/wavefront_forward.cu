@@ -93,15 +93,18 @@
 // kernel's prec f32 / bf16 / f8 (make_forward's cdt, ring_dt and r0_dt) are
 // three instances of every entry. At 1 (bf16) and 2 (f8) the host rounds the
 // weights and layer 1's q operands (centers, pad value) to bfloat16 and the
-// all-pad constants to the ring's type once (cuda_kernel.operand_weights);
-// layers 2-4 round each tap input to bfloat16 or float8_e4m3fn where the
-// sum uses it (layer_sum.cuh's round_operand, centre tap and pad rows
-// included), and
-// layer 3's skip reads layer 1's float32 output. The activations stay float32
-// in device memory: rounding on read needs no second copy of layer 1 for the
-// skip. Products of bf16 values are exact in float32, so the (tap, channel)
-// order of every sum is that of precision 0, whose instance is the code it
-// was before the other two existed.
+// all-pad constants to the ring's type once (cuda_kernel.operand_weights).
+// The operands are stored at their precision (layer_sum.cuh's Operand<P>):
+// q as bfloat16, the activations of layers 1-3 as bfloat16 or
+// float8_e4m3fn, each rounded once where it is written (to_operand; the host
+// writes the constant rows already rounded), so layers 2-4 read 8 or 16 tap
+// inputs a 128-bit load and convert nothing but the exact widening. Layer
+// 3's skip reads layer 1's float32 output (pallas_kernel.py:828, 836): layer
+// 1 also writes a float32 copy of its rows (act1f), which the skip reads.
+// Products of bf16 values are exact in float32, so the (tap, channel) order
+// of every sum is that of precision 0, whose instance is the code it was
+// before the other two existed, one buffer of float32 a layer
+// (act1f == act1).
 //
 // Bound on the H100: operations, ~8.1 GFLOP per Kodak-size image in f32
 // over the unmasked taps of the four layer grids at kf=24 (chip_smoke.py
@@ -142,7 +145,10 @@ struct FwdArgs {
   const int* skip3;
   const int* slot4;
   const int* idx_cm;
-  float *act1, *act2, *act3, *logits, *qbuf;
+  void *act1, *act2, *act3;   // Operand<P>::T rows: what layers 2-4 read as taps
+  float* act1f;               // layer 1 in float32 for layer 3's skip (act1 at P = 0)
+  float* logits;
+  void* qbuf;                 // q: float32 at P = 0, bfloat16 at 1 and 2
   const int* true_syms;
   int *fsel, *ssel;
   const int* streams;
@@ -196,10 +202,10 @@ __device__ __forceinline__ void prefetch_l1(const void* p) {
 // `nb` blocks' threads in order. CYCLIC = true (the scan): cell r goes to
 // block r % nb, so every block of the cluster gets its share of a step's few
 // cells.
-template <int CIN, int COUT, int CO, int NT, int M, int D, bool CYCLIC, int P, class Emit>
+template <int CIN, int COUT, int CO, int NT, int M, int D, bool CYCLIC, class Src, class Emit>
 __device__ __forceinline__ void layer_cells(
     int c0, int nc, const int* __restrict__ taps, const int* __restrict__ out_idx,
-    const float* src, int cin, const float* w, const float* bias, int cout, bool relu,
+    const Src* src, int cin, const float* w, const float* bias, int cout, bool relu,
     const float* skip_src, const int* __restrict__ skip_idx, int rank, int nb, Emit emit) {
   const int groups = CIN > 0 ? COUT / CO : cout;
   const int mine = CYCLIC ? (nc - rank + nb - 1) / nb : nc;
@@ -226,11 +232,11 @@ __device__ __forceinline__ void layer_cells(
     }
     float acc[M][CO];
     if constexpr (CIN > 0) {
-      cell_sum<CIN, COUT, CO, NT, M, D, true, P>(
+      cell_sum<CIN, COUT, CO, NT, M, D, true>(
           acc, [&](int m, int k) { return src + (size_t)tp[m][k] * CIN; }, w, ch);
     } else {
-      acc[0][0] = cell_sum_any<true, P>([&](int k) { return src + (size_t)tp[0][k] * cin; },
-                                        w, ch, cin, cout, NT);
+      acc[0][0] = cell_sum_any<true>([&](int k) { return src + (size_t)tp[0][k] * cin; },
+                                     w, ch, cin, cout, NT);
     }
 #pragma unroll
     for (int m = 0; m < M; ++m) {
@@ -277,30 +283,71 @@ struct StoreRow {
   }
 };
 
+// The same at precision P > 0: the channels rounded to Operand<P>::T (4 of
+// them one 8- or 4-byte store), and with `f32` also as float32 (layer 1's
+// copy for the skip).
+template <int P>
+struct StoreTyped {
+  using T = typename Operand<P>::T;
+  T* dst;
+  int width;
+  float* f32;
+  __device__ __forceinline__ void operator()(int row, int ch, const float* v, int n) const {
+    T* p = dst + (size_t)row * width + ch;
+    if (n == 4) {
+      if constexpr (P == 1) {
+        const __nv_bfloat162 lo = __halves2bfloat162(to_operand<1>(v[0]), to_operand<1>(v[1]));
+        const __nv_bfloat162 hi = __halves2bfloat162(to_operand<1>(v[2]), to_operand<1>(v[3]));
+        *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                                  *reinterpret_cast<const uint32_t*>(&hi));
+      } else {
+        *reinterpret_cast<uint32_t*>(p) =
+            (uint32_t)to_operand<2>(v[0]) | ((uint32_t)to_operand<2>(v[1]) << 8) |
+            ((uint32_t)to_operand<2>(v[2]) << 16) | ((uint32_t)to_operand<2>(v[3]) << 24);
+      }
+    } else {
+      for (int i = 0; i < n; ++i) p[i] = to_operand<P>(v[i]);
+    }
+    if (f32) StoreRow{f32, width}(row, ch, v, n);
+  }
+};
+
+// q's storage: float32 at precision 0, else bfloat16 (the host rounds the
+// centers and the pad value it is made of to bfloat16).
+template <int P>
+using QType = typename Operand<P ? 1 : 0>::T;
+
 // Layer l (1..3) over cells [c0, c0 + nc) of its list; CO channels a thread
-// (1 in the generic instance, KF == 0). Layers 2 and 3 round their tap
-// inputs to P's type; layer 1 reads q as stored (the host rounds the centers
-// and the pad value it is made of) and layer 3's skip reads layer 1's
-// float32 output (pallas_kernel.py:828, 836).
+// (1 in the generic instance, KF == 0). Every layer reads its taps as stored
+// (q, then layers 1 and 2 at P's type) and writes its rows rounded to P's
+// type; layer 1 also writes them in float32 at P > 0, for layer 3's skip
+// (pallas_kernel.py:828, 836).
 template <int KF, int CO, int M, int D, bool CYCLIC, int P>
 __device__ __forceinline__ void hidden_layer(const FwdArgs& a, const Params& p, int l,
                                              int b, int c0, int nc, int rank, int nb) {
+  using A = typename Operand<P>::T;
   const int kf = KF ? KF : a.kf;
-  float* act1 = a.act1 + (size_t)b * (a.G1 + 1) * kf;
-  float* act2 = a.act2 + (size_t)b * (a.G2 + 1) * kf;
-  float* act3 = a.act3 + (size_t)b * (a.G3 + 1) * kf;
-  const float* qb = a.qbuf + (size_t)b * (a.n + 1);
+  A* act1 = static_cast<A*>(a.act1) + (size_t)b * (a.G1 + 1) * kf;
+  A* act2 = static_cast<A*>(a.act2) + (size_t)b * (a.G2 + 1) * kf;
+  A* act3 = static_cast<A*>(a.act3) + (size_t)b * (a.G3 + 1) * kf;
+  // At P = 0 the skip reads act1 itself (the one float32 buffer).
+  float* act1f = P ? a.act1f + (size_t)b * (a.G1 + 1) * kf : reinterpret_cast<float*>(act1);
+  const QType<P>* qb = static_cast<const QType<P>*>(a.qbuf) + (size_t)b * (a.n + 1);
+  auto store = [&](A* dst, float* f32) {
+    if constexpr (P == 0) return StoreRow{dst, kf};
+    else return StoreTyped<P>{dst, kf, f32};
+  };
   if (l == 1) {
-    layer_cells<(KF ? 1 : 0), KF, CO, NT1, M, D, CYCLIC, 0>(
+    layer_cells<(KF ? 1 : 0), KF, CO, NT1, M, D, CYCLIC>(
         c0, nc, a.taps1, a.cells1, qb, 1, p.w1, p.b1, kf, true, nullptr, nullptr, rank, nb,
-        StoreRow{act1, kf});
+        store(act1, P ? act1f : nullptr));
   } else {
     // Layers 2 and 3 share one instance of the sum (one copy of the code).
     const bool l3 = l == 3;
-    layer_cells<KF, KF, CO, NTO, M, D, CYCLIC, P>(
+    layer_cells<KF, KF, CO, NTO, M, D, CYCLIC>(
         c0, nc, l3 ? a.taps3 : a.taps2, l3 ? a.cells3 : a.cells2, l3 ? act2 : act1, kf,
-        l3 ? p.w3 : p.w2, l3 ? p.b3 : p.b2, kf, !l3, l3 ? act1 : nullptr, a.skip3, rank, nb,
-        StoreRow{l3 ? act3 : act2, kf});
+        l3 ? p.w3 : p.w2, l3 ? p.b3 : p.b2, kf, !l3, l3 ? act1f : nullptr, a.skip3, rank, nb,
+        store(l3 ? act3 : act2, nullptr));
   }
 }
 
@@ -310,9 +357,10 @@ __device__ __forceinline__ void logit_layer(const FwdArgs& a, const Params& p, i
                                             int c0, int nc, const int* out_idx, int rank,
                                             int nb, Emit emit) {
   const int kf = KF ? KF : a.kf;
-  const float* act3 = a.act3 + (size_t)b * (a.G3 + 1) * kf;
-  layer_cells<KF, NL, CO, NTO, M, D, CYCLIC, P>(c0, nc, a.taps4, out_idx, act3, kf, p.w4, p.b4, a.L,
-                                       true, nullptr, nullptr, rank, nb, emit);
+  const auto* act3 =
+      static_cast<const typename Operand<P>::T*>(a.act3) + (size_t)b * (a.G3 + 1) * kf;
+  layer_cells<KF, NL, CO, NTO, M, D, CYCLIC>(c0, nc, a.taps4, out_idx, act3, kf, p.w4, p.b4,
+                                             a.L, true, nullptr, nullptr, rank, nb, emit);
 }
 
 // ---------------------------------------------------------------------------
@@ -404,7 +452,7 @@ __global__ void __launch_bounds__(THREADS, 1) wavefront_kernel(FwdArgs a) {
   const int* taps_of[4] = {a.taps1, a.taps2, a.taps3, a.taps4};
   const int* out_of[4] = {a.cells1, a.cells2, a.cells3, a.slot4};
 
-  float* qb = a.qbuf + (size_t)b * (n + 1);
+  QType<P>* qb = static_cast<QType<P>*>(a.qbuf) + (size_t)b * (n + 1);
   const int lane = threadIdx.x & 31;
   const bool rans_warp = a.mode == 0 && rank == 0 && threadIdx.x < 32;
   uint32_t st = 0, gptr = 0, base = 0;
@@ -476,7 +524,7 @@ __global__ void __launch_bounds__(THREADS, 1) wavefront_kernel(FwdArgs a) {
           if (idx < n) {
             const int sym = a.true_syms[(size_t)b * n + idx];
             cdf_select<NL>(freq, cdf, L, sym, &fs, &ss);
-            qb[idx] = p.centers[sym];
+            qb[idx] = to_operand<P ? 1 : 0>(p.centers[sym]);
           }
           a.fsel[out_row + cq] = fs;
           a.ssel[out_row + cq] = ss;
@@ -513,7 +561,7 @@ __global__ void __launch_bounds__(THREADS, 1) wavefront_kernel(FwdArgs a) {
             if (act) {
               st = x;
               a.syms_out[(size_t)b * n + idx] = sym;
-              qb[idx] = p.centers[sym];
+              qb[idx] = to_operand<P ? 1 : 0>(p.centers[sym]);
             }
             gptr += (uint32_t)__popc(mask);
             window_slide(win, stream, a.cap, gptr, base, lane);
