@@ -9,7 +9,9 @@ kernels line, with the package of DIR (a checkout of another commit) when
 given: two such runs in one call compare two versions on one card.
 ``--kernel2-only [--root DIR] [--profile]`` does the same for kernel 2 (3a,
 3b) at each operand precision the package has, on the trained K=3 context
-model, after timing the main path's entropy legs at each precision twice.
+model, after timing the main path's entropy legs at each precision twice,
+and then kernel 5 (5a, 5b) with phase 5's seeded K=5 model; it prints
+ptxas's registers and spills of each kernel-2 and kernel-5 instance.
 
 Phases, one line each:
   1. the device (torch name, nvidia-smi name and power limit);
@@ -127,7 +129,15 @@ Phases, one line each:
      same streams, the operands' bytes over the HBM rate; seeded kf = 64 (weights in device memory) and kf = 8
      (generic instance) context models at B=2 through the same checks;
      the streams of ab_streams' workload at K=3 (prec 0, 1 and 2) and K=5
-     (prec 0) against the parent commit's digests (AB_DIGESTS);
+     (prec 0) against the parent commit's digests (AB_DIGESTS); non-finite
+     inputs at B=2: the trained K=3 model with layer 1's hottest channel
+     scaled past the f8 ring's range (464), kernel 2's f8 layer-parallel,
+     scan and plain tables equal on every entry, the all-ones columns (a
+     NaN logit) counted (fail at 0) and the f8 round trip CRC-verified; the
+     same for kernel 5 with phase 5's seeded K=5 model, its last layer
+     scaled to +inf logits; and, recorded only, phase 7's K=5 checkpoint
+     encoded outside cuDNN's deterministic scope and decoded inside it and
+     the other way round (CRC, symbols and table entries off);
  11. the entry points of graft_entry_torch.py on the card: entry()
      against the same step on the CPU, and dryrun_multichip(1) (an NCCL
      world-1 train step, EvalModel, a LatentCodec round trip);
@@ -347,7 +357,9 @@ def kernel2_only(root, profile=False):
     a second; with `--profile` the first pass of each precision runs under
     torch.profiler, which prints its 8 operators of most host time. DIR (a
     checkout of another commit) supplies the package instead of this one.
-    Prints one line a precision and one JSON line."""
+    Then kernel 5 (kernel5_times) on the same symbols with phase 5's
+    seeded pc base. Prints one line a precision, one for kernel 5 and one
+    JSON line."""
     import hashlib
     import torch
     if root:
@@ -361,7 +373,10 @@ def kernel2_only(root, profile=False):
     if root and not os.path.abspath(build.__file__).startswith(os.path.abspath(root)):
         raise AssertionError(f'package not taken from {root}')
     dev = torch.device('cuda')
-    build.build_all()
+    logs = build.build_all()
+    for name in [n for n in ('wavefront_forward', 'plane_forward') if logs.get(n)]:
+        print(f'[k2 build] {name}: ' + ' | '.join(
+            f'{fn} {regs}' for fn, regs in ptxas_kernels(logs[name]).items()), flush=True)
     ae_config, _ = config_lib.parse_spec('cvpr/low', 'ae')
     pc_config, _ = config_lib.parse_spec('cvpr/res_shallow', 'pc')
     ae = ae_lib.CVPRAutoencoder(ae_config, device=dev)
@@ -412,9 +427,65 @@ def kernel2_only(root, profile=False):
         print(f'[k2 {prec}] 3a encode {enc_ms:.3f} ms, 3b decode {dec_ms:.3f} ms, theory '
               f'bits {bits:.0f}, tables sha256 {digests["tables"][:16]}, streams sha256 '
               f'{digests["streams"][:16]}', flush=True)
+    pc5_config, _ = config_lib.parse_spec('base', 'pc')
+    pc5 = pc_lib.init_params(pc_lib.ProbClassifier(pc5_config, ae_config.num_centers,
+                                                   device=dev), seed=0)
+    k5 = kernel5_times(pc5, pc5_config, syms.reshape((BATCH,) + shape),
+                       ae.encoder.centers.detach())
+    print(f'[k5] 5a encode {k5["encode_ms"]:.3f} ms a batch ({k5["encode_ms"] / 5:.3f} a '
+          f'launch: {[round(t, 3) for t in k5["launch_ms"]]}), 5b decode {k5["decode_ms"]:.3f} '
+          f'ms a plane launch (clocks a step, levels 1-4 and CDF + rANS: '
+          f'{k5["decode_clocks"]}), tables sha256 {k5["tables"][:16]}, streams sha256 '
+          f'{k5["streams"][:16]}', flush=True)
     print(json.dumps({'root': root or '.', 'device': torch.cuda.get_device_name(0),
-                      'kernel2': out}), flush=True)
+                      'kernel2': out, 'kernel5': k5}), flush=True)
     return 0
+
+
+def kernel5_times(pc5, pc5_config, syms, centers, plane=2):
+    """Kernel 5 alone (the `--kernel2-only` run): the layer-parallel encode
+    (5a; its 5 launches timed by planar_encode_launch_ms), kernel 6 on its
+    tables, then the scan decode of every plane up to ``plane`` with plane
+    ``plane``'s launch timed (5b) and its clocks a step by phase (the
+    kernel's ``prof``), the decode held to the symbols; sha256s of the
+    tables and of kernel 6's streams."""
+    import hashlib
+    import torch
+    from imgcomp_cvpr_tpu_torch.coding import planar, planar_codec
+    from imgcomp_cvpr_tpu_torch.coding import planar_kernel as plk
+    dev = syms.device
+    B, C, H, W = syms.shape
+    shape = (C, H, W)
+    syms = syms.int().contiguous()
+    coder = planar_codec.PlanarCoder(pc5, pc5_config, device=dev)
+    sched, fold = coder._prepare(shape, centers)
+    launch_ms, _, (fsel, ssel), _ = planar_encode_launch_ms(coder, syms, fold)
+    w, n_w, st, k = plk.plane_reverse(fsel, ssel, shape, coder.K, 1)
+    streams = torch.zeros(B, sched.stream_cap, dtype=torch.int32, device=dev)
+    for i in range(B):
+        streams[i, :n_w[i]] = w[i, :n_w[i]].flip(0)
+    thresh = (torch.from_numpy(coder.lane_totals(shape)).to(dev)[None] - k).int()
+    plane_tot = torch.from_numpy(planar.plane_totals(sched)).to(dev)
+    states, gptr = st, torch.zeros(B, dtype=torch.int32, device=dev)
+    hist = coder._history(fold, sched, B)
+    for d in range(plane + 1):
+        bias = coder.bias_rows(fold, hist)
+        args = dict(streams=streams, states=states, gptr=gptr,
+                    thresh=(thresh - d * plane_tot).int().contiguous())
+        out = plk.plane_forward(plk.MODE_DECODE, fold.top, shape, coder.K, bias, **args)
+        if not torch.equal(out.syms, syms[:, d]):
+            raise AssertionError(f'kernel 5: the scan did not recover plane {d}')
+        states, gptr = out.states, out.gptr
+        coder._push(hist, out)
+    dec_ms = cuda_ms(lambda: plk.plane_forward(plk.MODE_DECODE, fold.top, shape, coder.K,
+                                               bias, **args), 3)
+    prof = torch.zeros(B, 5, dtype=torch.int64, device=dev)
+    plk.plane_forward(plk.MODE_DECODE, fold.top, shape, coder.K, bias, prof=prof, **args)
+    clocks = (prof.double().mean(0) / sched.T2).round().long().tolist()
+    digest = {key: hashlib.sha256(b''.join(t.cpu().numpy().tobytes() for t in ts)).hexdigest()
+              for key, ts in (('tables', (fsel, ssel)), ('streams', (w, n_w, st, k)))}
+    return dict(encode_ms=sum(launch_ms), launch_ms=launch_ms, decode_ms=dec_ms,
+                decode_clocks=clocks, **digest)
 
 
 def ptxas_summary(log):
@@ -422,6 +493,21 @@ def ptxas_summary(log):
     stack frame and spills, then (for a kernel) its registers."""
     return [l.split(':', 1)[-1].strip() if 'registers' in l else l.strip()
             for l in log.splitlines() if 'registers' in l or 'stack frame' in l]
+
+
+def ptxas_kernels(log):
+    """ptxas -v's log of one build -> {kernel (mangled name): 'N registers'
+    and, where ptxas reports any, its spill stores and loads}."""
+    out, fn, spill = {}, None, ''
+    for line in log.splitlines():
+        if 'Compiling entry function' in line:
+            fn, spill = line.split("'")[1], ''
+        elif 'spill stores' in line and '0 bytes spill stores, 0 bytes spill loads' not in line:
+            spill = ', ' + line.split(',', 1)[-1].strip()
+        elif 'registers' in line and fn:
+            out[fn] = line.split('Used', 1)[-1].split(',')[0].strip() + spill
+            fn = None
+    return out
 
 
 def host_ms(fn):
@@ -2563,6 +2649,189 @@ def precision_path(dev, ae, pc, pc_config, x, centers, rt4, rows):
     return launches
 
 
+def scaled_copy(pc, conv_name, scale, channel=None):
+    """A copy of context model ``pc`` with conv ``conv_name``'s weights and
+    bias (output channel ``channel`` only, when given) times ``scale``, in
+    float64 and rounded once."""
+    import copy
+    import torch
+    out = copy.deepcopy(pc)
+    conv = getattr(out.net, conv_name)
+    with torch.no_grad():
+        for t in (conv.weight, conv.bias):
+            part = t if channel is None else t[channel]
+            part.copy_((part.double() * scale).float())
+    return out
+
+
+def all_ones_columns(logits):
+    """(..., L) logits -> bool (...): the cells whose column is freq 1 for
+    every symbol (a NaN or +inf logit there), by the plain CDF."""
+    from imgcomp_cvpr_tpu_torch.coding import cuda_kernel as ck
+    return (ck.logits_to_cdf(logits)[0] == 1).all(-1)
+
+
+def nonfinite_path(dev, pc, pc_config, pc5, pc5_config, centers, rt4, val_info):
+    """Phase 10, non-finite inputs. K=3: the trained model with layer 1's
+    hottest output channel scaled until its largest activations on phase 4's
+    first two images pass 464, which the f8 ring rounds to NaN (XLA's
+    rule): kernel 2's f8 layer-parallel tables, its scan's mode-1 tables and
+    its plain version's equal on every entry, the cells whose column is all
+    ones counted (fail at 0) and coded at freq 1, start = symbol; the f8
+    round trip CRC-verified. K=5: phase 5's seeded pc base with its last
+    layer scaled until its largest logits pass float32's range (+inf, so NaN
+    columns through inf - inf): kernel 5's layer-parallel tables, its scan's
+    and its plain version's equal on every entry, the same count, the round
+    trip. Then, recorded and not held: phase 7's K=5 checkpoint encoded
+    outside cuDNN's deterministic scope and decoded inside it, and the other
+    way round (CRC, symbols and table entries off)."""
+    import torch
+    from imgcomp_cvpr_tpu_torch.coding import codec as codec_lib, cuda_codec
+    from imgcomp_cvpr_tpu_torch.coding import cuda_kernel as ck, planar_codec
+    from imgcomp_cvpr_tpu_torch.coding import planar_kernel as plk
+    from imgcomp_cvpr_tpu_torch.eval import validate as validate_lib
+    from imgcomp_cvpr_tpu_torch.training import checkpoint as checkpoint_lib
+    from imgcomp_cvpr_tpu_torch.utils import logdir as logdir_lib
+    t_phase = time.time()
+    syms = rt4['syms'][:2].int().contiguous()
+    B, C, H, W = syms.shape
+    shape, n = (C, H, W), C * H * W
+    flat = syms.reshape(B, n).contiguous()
+
+    # K=3 at f8: scale layer 1's hottest channel to 1.25 x 464 at its peak.
+    fw = cuda_codec.fold_weights(pc, centers)
+    tabs = ck.device_tables(shape, str(dev))
+    src = torch.cat([fw.centers[flat.long()], fw.pad.expand(B, 1)], 1)[:, :, None]
+    peak = ck.layer_all_cells(src, tabs.taps[0].long(), fw.w1, fw.b1).amax((0, 1))
+    ch = int(peak.argmax())
+    scale = 1.25 * 464 / float(peak[ch])
+    hot = scaled_copy(pc, 'conv0', scale, ch)
+    fwh = cuda_codec.fold_weights(hot, centers)
+    src = torch.cat([fwh.centers[flat.long()], fwh.pad.expand(B, 1)], 1)[:, :, None]
+    past = int((ck.layer_all_cells(src, tabs.taps[0].long(), fwh.w1, fwh.b1) > 464).sum())
+    (f_k, s_k), (f_s, s_s), enc_ms, dec_ms, dec = k3_kernel_times(fwh, shape, flat, prec=2)
+    (f_p, s_p), logits = ck.wavefront_encode_plain(fwh, shape, flat, prec=2,
+                                                   return_logits=True)
+    if not (torch.equal(f_k, f_s) and torch.equal(s_k, s_s)):
+        raise AssertionError('10 non-finite K=3 f8: tables differ from the scan\'s')
+    if not (torch.equal(f_k, f_p) and torch.equal(s_k, s_p)):
+        raise AssertionError('10 non-finite K=3 f8: tables differ from the plain version\'s')
+    if not torch.equal(dec, flat):
+        raise AssertionError('10 non-finite K=3 f8: the scan did not recover the symbols')
+    ones = all_ones_columns(logits)
+    idx = tabs.idx_cm.long()
+    act = idx < n
+    idx_c = idx.clamp(max=n - 1)
+    at = ones[:, idx_c] & act
+    if int(ones.sum()) == 0:
+        raise AssertionError('10 non-finite K=3 f8: no all-ones column: the case is not driven')
+    if not (torch.equal(f_k[at], torch.ones_like(f_k[at]))
+            and torch.equal(s_k[at], flat[:, idx_c][at])):
+        raise AssertionError('10 non-finite K=3 f8: an all-ones column not coded at freq 1, '
+                             'start = symbol')
+    lc = codec_lib.LatentCodec(hot, pc_config, device=dev, prec='f8')
+    res = lc.encode_batch(syms, centers)
+    got = lc.decode_batch([r.bitstream for r in res], centers, verify=True)
+    if not torch.equal(got.long(), syms.long()):
+        raise AssertionError('10 non-finite K=3 f8: round trip not bit-exact')
+    print(f'[10 non-finite K=3 f8] trained pc cvpr/res_shallow with layer 1\'s channel {ch} '
+          f'x {scale:.4f} (its peak {float(peak[ch]):.3f} -> {1.25 * 464:.0f}), B={B} latent '
+          f'{shape}: {past} layer-1 activations past 464; {int(ones.sum())} of {ones.numel()} '
+          f'cells with an all-ones column ({int((~torch.isfinite(logits)).any(-1).sum())} '
+          f'with a non-finite logit); kernel 2\'s f8 layer-parallel tables equal the scan\'s '
+          f'mode-1 tables and the plain version\'s on all {f_k.numel()} entries, the '
+          f'all-ones cells coded at freq 1, start = symbol; the scan decodes kernel 3\'s '
+          f'streams; 3a {enc_ms:.3f} ms, 3b {dec_ms:.3f} ms; LatentCodec(prec=\'f8\') round '
+          f'trip CRC-verified bit-exact ({sum(r.num_bits for r in res)} bits)', flush=True)
+
+    # csrc/cdf.cuh on logits given outright (kernel 5's table pass): a seed
+    # puts NaN, +inf and -inf in 5% of the cells each, one symbol each.
+    coder = planar_codec.PlanarCoder(pc5, pc5_config, device=dev)
+    fold = coder._prepare(shape, centers)[1]
+    L = pc5.num_centers
+    rng = np.random.RandomState(0)
+    lg = (rng.randn(B * C, H, W, L) * 4).astype(np.float32)
+    for v, cells in zip((np.nan, np.inf, -np.inf), rng.rand(3, B * C, H, W) < 0.05):
+        lg[cells, rng.randint(0, L, int(cells.sum()))] = v
+    lg = torch.from_numpy(lg).to(dev)
+    true = syms.reshape(B * C, H, W).contiguous()
+    ft, st = plk.plane_tables(fold.top, lg, true, shape, coder.K)
+    fp, sp = plk.plane_tables_plain(lg, true, shape, coder.K)
+    if not (torch.equal(ft, fp) and torch.equal(st, sp)):
+        raise AssertionError('10 non-finite: kernel 5\'s table pass differs from the plain '
+                             'version on non-finite logits')
+    n_cdf = int(all_ones_columns(lg).sum())
+    print(f'[10 non-finite CDF] kernel 5\'s table pass on seeded logits (B*C={B * C} planes '
+          f'of {H}x{W}, a NaN, a +inf or a -inf in 5% of the cells each): {n_cdf} all-ones '
+          f'columns; tables equal to the plain version\'s on all {ft.numel()} entries '
+          f'((int)floorf(NaN) is 0 on the card, no deficit on a NaN column)', flush=True)
+
+    # K=5: the last layer scaled until its largest logits pass float32's range.
+    _, lg = coder.encode_tables(syms, fold, plain=True, return_logits=True)
+    scale5 = 1.25 * float(np.finfo(np.float32).max) / float(lg.max())
+    hot5 = scaled_copy(pc5, 'conv_out', scale5)
+    coder = planar_codec.PlanarCoder(hot5, pc5_config, device=dev)
+    fold = coder._prepare(shape, centers)[1]
+    fk5, sk5 = coder.encode_tables(syms, fold)
+    fs5, ss5 = coder.encode_tables_scan(syms, fold)
+    (fp5, sp5), lg = coder.encode_tables(syms, fold, plain=True, return_logits=True)
+    if not (torch.equal(fk5, fs5) and torch.equal(sk5, ss5)):
+        raise AssertionError('10 non-finite K=5: tables differ from the scan\'s')
+    if not (torch.equal(fk5, fp5) and torch.equal(sk5, sp5)):
+        raise AssertionError('10 non-finite K=5: tables differ from the plain version\'s')
+    ones5 = all_ones_columns(lg)
+    n_inf = int((lg == float('inf')).sum())
+    if n_inf == 0 or int(ones5.sum()) == 0:
+        raise AssertionError(f'10 non-finite K=5: {n_inf} +inf logits, {int(ones5.sum())} '
+                             'all-ones columns: the case is not driven')
+    lc5 = codec_lib.LatentCodec(hot5, pc5_config, device=dev)
+    res5 = lc5.encode_batch(syms, centers)
+    got5 = lc5.decode_batch([r.bitstream for r in res5], centers, verify=True)
+    if not torch.equal(got5.long(), syms.long()):
+        raise AssertionError('10 non-finite K=5: round trip not bit-exact')
+    print(f'[10 non-finite K=5] seeded pc base with conv_out x {scale5:.6g} (float32\'s max '
+          f'over 0.8 of its peak logit), B={B} latent {shape}: {n_inf} +inf logits, '
+          f'{int(ones5.sum())} of {ones5.numel()} cells with an all-ones column; kernel 5\'s '
+          f'layer-parallel tables equal the scan\'s mode-1 tables and the plain version\'s '
+          f'on all {fk5.numel()} entries; round trip CRC-verified bit-exact '
+          f'({sum(r.num_bits for r in res5)} bits)', flush=True)
+
+    # Phase 7's K=5 checkpoint across cuDNN's deterministic scope: recorded.
+    em = validate_lib.build_eval_model_from_log_dir(val_info['log5'], device=dev)
+    ckpt_dir = logdir_lib.ckpt_dir_for_log_dir(val_info['log5'])
+    em.set_params(checkpoint_lib.Saver(ckpt_dir).restore(9000)[0]['model'])
+    syms4 = rt4['syms'][:4].int().contiguous()
+    c5 = em.ae.encoder.centers.detach()
+    lc5 = codec_lib.LatentCodec(em.pc, em.pc_config, device=dev)
+    coder = planar_codec.PlanarCoder(em.pc, em.pc_config, device=dev)
+    fold = coder._prepare(tuple(syms4.shape[1:]), c5)[1]
+
+    def scoped(on, fn):
+        with (validate_lib.deterministic_cudnn() if on else contextlib.nullcontext()):
+            return fn()
+
+    tables = {on: scoped(on, lambda: coder.encode_tables(syms4, fold)) for on in (False, True)}
+    off = int(((tables[False][0] != tables[True][0])
+               | (tables[False][1] != tables[True][1])).sum())
+    out = []
+    for enc_on in (False, True):
+        streams = [r.bitstream for r in scoped(enc_on, lambda: lc5.encode_batch(syms4, c5))]
+        try:
+            got = scoped(not enc_on, lambda: lc5.decode_batch(streams, c5, verify=True))
+            crc = 'CRC pass'
+        except ValueError:
+            got = scoped(not enc_on, lambda: lc5.decode_batch(streams, c5, verify=False))
+            crc = 'CRC FAIL'
+        wrong = int((got.long() != syms4.long()).sum())
+        out.append(f'encoded {"inside" if enc_on else "outside"}, decoded '
+                   f'{"outside" if enc_on else "inside"}: {crc}, {wrong} of {syms4.numel()} '
+                   f'symbols off')
+    print(f'[10 cudnn scopes] phase 7\'s K=5 checkpoint (seeded pc base), phase 4\'s first 4 '
+          f'images\' symbols, LatentCodec: ' + '; '.join(out) + f'; encode tables outside '
+          f'against inside the scope: {off} of {tables[False][0].numel()} entries off '
+          f'(recorded, not held); phase {time.time() - t_phase:.1f} s', flush=True)
+
+
 def entry_points(dev):
     """Phase 11: graft_entry_torch's entry points on the card, the launch
     counts set to 0 just before and read just after. entry(): one forward
@@ -2864,6 +3133,7 @@ def main(argv):
 
     # ---- phase 10: kernel 2 at bf16 and f8 (container prec 1 and 2) -------
     launches[10] = precision_path(dev, ae, pc, pc_config, x, centers, rt4, rows)
+    nonfinite_path(dev, pc, pc_config, pc5, pc5_config, centers, rt4, val_info)
 
     # ---- phase 11: the entry points of graft_entry_torch.py ---------------
     launches[11] = entry_points(dev)

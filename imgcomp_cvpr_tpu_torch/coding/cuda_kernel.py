@@ -389,7 +389,17 @@ def logits_to_cdf(logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     sequential sum over L, then rans.quantize_cdf. The same order of
     operations as cdf_from_logits in csrc/wavefront_forward.cu; on the CPU
     the exponentials are exp_host's, on a card torch.exp's, which is the
-    kernels' expf."""
+    kernels' expf.
+
+    Non-finite logits follow the JAX kernel (pallas_kernel.py's
+    _quantize_cdf_kernel) op by op. A column holding a NaN or a +inf logit
+    (inf - inf is NaN) gets NaN probabilities. floor(NaN) converts to 0, as
+    XLA and the card convert it, so each symbol gets freq 1. No probability
+    equals the column's max (NaN), so no symbol takes the deficit. The
+    column is freq 1 for every symbol with cdf_low l, summing to L; the
+    rANS coders take it as it is (slot = start for freq 1). A -inf logit
+    only gives its symbol p = 0 (a column of -inf alone is NaN). The
+    kernels' csrc/cdf.cuh::cdf_from_logits states the same rule."""
     m = logits.max(-1, keepdim=True).values
     d = logits - m
     e = exp_host(d) if d.device.type == 'cpu' else torch.exp(d)

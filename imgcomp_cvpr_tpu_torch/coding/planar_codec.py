@@ -134,11 +134,13 @@ class PlanarCoder:
 
     # -- encode ---------------------------------------------------------------
 
-    def encode_tables(self, syms: torch.Tensor, fold: PlanarFold, plain: bool = False):
+    def encode_tables(self, syms: torch.Tensor, fold: PlanarFold, plain: bool = False,
+                      return_logits: bool = False):
         """(B, C, H, W) int32 symbols -> (fsel, ssel) (B, C*T2, R) int32 in
         (plane, step) coding order, through kernel 5's layer-parallel encode:
         per level the bias rows of all planes, then one launch. ``plain``
-        runs the kernel's plain version instead, whatever the device."""
+        runs the kernel's plain version instead, whatever the device.
+        ``return_logits`` also returns level 4's (B*C, H, W, L) logits."""
         level = pk.level_forward_plain if plain else pk.level_forward
         b, C, H, W = syms.shape
         latent_shape = (C, H, W)
@@ -175,7 +177,8 @@ class PlanarCoder:
             fsel, ssel = pk.plane_tables_plain(out, true, latent_shape, self.K)
         else:
             fsel, ssel = pk.plane_tables(fold.top, out, true, latent_shape, self.K)
-        return fsel.reshape(b, -1, planar.R), ssel.reshape(b, -1, planar.R)
+        tables = fsel.reshape(b, -1, planar.R), ssel.reshape(b, -1, planar.R)
+        return (tables, out) if return_logits else tables
 
     def encode_tables_scan(self, syms: torch.Tensor, fold: PlanarFold):
         """encode_tables through kernel 5's teacher-forced scan, plane by

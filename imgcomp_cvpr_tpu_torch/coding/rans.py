@@ -28,9 +28,13 @@ MASK32 = 0xFFFFFFFF
 def quantize_cdf(probs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., L) float probs -> (freq, cdf_low) int64 with sum(freq) == SCALE:
     floor(p * (SCALE - L)) + 1 per symbol, the remainder to the lowest-index
-    argmax."""
+    argmax. A NaN probability converts to 0 (XLA's and the card's float to
+    int conversion), so it gets freq 1; a column holding one has no p equal
+    to its max, so it takes no remainder and sums to L (see
+    cuda_kernel.logits_to_cdf)."""
     L = probs.shape[-1]
-    scaled = torch.floor(probs * float(SCALE - L)).long() + 1
+    floored = torch.floor(probs * float(SCALE - L))
+    scaled = torch.where(torch.isnan(floored), 0.0, floored).long() + 1
     deficit = SCALE - scaled.sum(-1, keepdim=True)
     pmax = probs.max(-1, keepdim=True).values
     lidx = torch.arange(L, device=probs.device)

@@ -23,6 +23,16 @@
 // index of the max probability, exclusive cumsum. NL > 0 fixes L at compile
 // time (the loops unroll and the arrays stay in registers); NL == 0 takes
 // the run-time L. The arithmetic is the same either way.
+//
+// Non-finite logits, as _quantize_cdf_kernel computes them op by op: a
+// column holding a NaN or a +inf logit (inf - inf is NaN) has a NaN sum, so
+// every p is NaN. (int)floorf(NaN) is 0 (PTX's cvt, as XLA converts), so
+// each freq is 1; no p equals the column's max (NaN), so no symbol takes the
+// deficit: freq 1 for every symbol, cdf_low l, a column summing to L. The
+// rANS coders take such a column as it is (slot = start for freq 1). A -inf
+// logit only gives its symbol p = 0 (a column of -inf alone is NaN). fmaxf
+// skips a NaN where jnp.max returns it; the sum is NaN either way. The plain
+// twin, coding/cuda_kernel.py::logits_to_cdf, states the same rule.
 template <int NL>
 __device__ __forceinline__ void cdf_from_logits(const float* lg, int L_rt, int* freq,
                                                 int* cdf) {
@@ -42,7 +52,7 @@ __device__ __forceinline__ void cdf_from_logits(const float* lg, int L_rt, int* 
     if (l < L) s = s + e[l];
   const float scale_l = (float)(SCALE - (unsigned)L);
   float pmax = -1.f;
-  int am = 0, total = 0;
+  int am = L, total = 0;  // no symbol until a p beats pmax: none on a NaN column
 #pragma unroll
   for (int l = 0; l < N; ++l) {
     if (l < L) {

@@ -162,7 +162,7 @@ __device__ __forceinline__ void level_cells(const Level& lv, const int (&h)[M],
       if (lv.skip)
         v = __fadd_rn(v, lv.skip[((size_t)(h[m] + lv.sk) * lv.Wsk + (wc[m] + lv.sk)) * cout
                                  + ch + i]);
-      acc[m][i] = lv.relu ? fmaxf(v, 0.f) : v;
+      acc[m][i] = lv.relu && v < 0.f ? 0.f : v;  // NaN stays NaN (jax.nn.relu)
     }
   }
 }

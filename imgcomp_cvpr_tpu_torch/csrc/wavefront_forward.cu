@@ -245,7 +245,7 @@ __device__ __forceinline__ void layer_cells(
       for (int i = 0; i < CO; ++i) {
         float v = __fadd_rn(acc[m][i], bias[ch + i]);
         if (skip_src) v = __fadd_rn(v, sk[m][i]);
-        acc[m][i] = relu ? fmaxf(v, 0.f) : v;
+        acc[m][i] = relu && v < 0.f ? 0.f : v;  // NaN stays NaN (jax.nn.relu)
       }
       emit(out[m], ch, acc[m], CO);
     }

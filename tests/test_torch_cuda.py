@@ -864,3 +864,65 @@ def test_entry_points_on_card(cuda_device, capsys):
     assert torch.isfinite(out).all() and np.isfinite(float(bpp))
     entry_lib.dryrun_multichip(1)
     assert 'dryrun_multichip(1): ok' in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# Non-finite activations and logits (kernels 2 and 5 against their plain
+# versions; tests/test_torch_nonfinite.py holds the plain versions to JAX)
+# ---------------------------------------------------------------------------
+
+def test_cdf_on_nonfinite_logits_matches_plain(cuda_device):
+    """csrc/cdf.cuh through kernel 5's table pass on logits holding NaN,
+    +inf and -inf: the plain version's tables on every entry. A column with
+    a NaN or a +inf is freq 1 for every symbol ((int)floorf(NaN) is 0, and
+    no symbol takes the deficit)."""
+    shape, L = (3, 12, 20), 6
+    pc, cfg = _planar_pc(cuda_device)
+    coder = planar_codec.PlanarCoder(pc, cfg, device=cuda_device)
+    _, fold = coder._prepare(shape, torch.linspace(-2, 2, L, device=cuda_device))
+    rng = np.random.RandomState(0)
+    P = 2 * shape[0]
+    lg = (rng.randn(P, shape[1], shape[2], L) * 4).astype(np.float32)
+    for v, cells in zip((np.nan, np.inf, -np.inf), rng.rand(3, P, shape[1], shape[2]) < 0.1):
+        lg[cells, rng.randint(0, L, int(cells.sum()))] = v
+    lg = torch.from_numpy(lg).to(cuda_device)
+    true = torch.from_numpy(rng.randint(0, L, (P,) + shape[1:])).int().to(cuda_device)
+    fk, sk = plk.plane_tables(fold.top, lg, true, shape, 5)
+    fp, sp = plk.plane_tables_plain(lg, true, shape, 5)
+    assert torch.equal(fk, fp) and torch.equal(sk, sp)
+    assert int((ck.logits_to_cdf(lg)[0] == 1).all(-1).sum()) > 100
+
+
+def test_k3_f8_activation_past_464_kernel_equals_plain_and_roundtrips(cuda_device):
+    """Layer 1's hottest channel scaled to 1.25 x 464 at its peak: the f8
+    ring rounds the largest activations to NaN and the ReLU keeps it.
+    Kernel 2's f8 layer-parallel tables equal its scan's and the plain
+    version's on every entry, some columns are all ones, and the f8 codec
+    round-trips."""
+    shape = (4, 6, 7)
+    pc, cfg = _pc(cuda_device)
+    centers = torch.linspace(-2, 2, 6, device=cuda_device)
+    rng = np.random.RandomState(0)
+    syms = torch.from_numpy(rng.randint(0, 6, (2,) + shape)).int().to(cuda_device)
+    flat = syms.reshape(2, -1).contiguous()
+    fw = cuda_codec.fold_weights(pc, centers)
+    taps = ck.device_tables(shape, 'cuda').taps[0].long()
+    src = torch.cat([fw.centers[flat.long()], fw.pad.expand(2, 1)], 1)[:, :, None]
+    peak = ck.layer_all_cells(src, taps, fw.w1, fw.b1).amax((0, 1))
+    ch = int(peak.argmax())
+    with torch.no_grad():
+        for t in (pc.net.conv0.weight, pc.net.conv0.bias):
+            t[ch] *= 1.25 * 464 / float(peak[ch])
+    fw = cuda_codec.fold_weights(pc, centers)
+    fk, sk = ck.wavefront_forward(ck.MODE_ENCODE, fw, shape, true_syms=flat, prec='f8')
+    fs, ss = ck.wavefront_forward(ck.MODE_ENCODE, fw, shape, true_syms=flat, prec='f8',
+                                  scan=True)
+    (fp, sp), logits = ck.wavefront_encode_plain(fw, shape, flat, prec='f8',
+                                                 return_logits=True)
+    assert torch.equal(fk, fs) and torch.equal(sk, ss)
+    assert torch.equal(fk, fp) and torch.equal(sk, sp)
+    assert (ck.logits_to_cdf(logits)[0] == 1).all(-1).any()
+    lc = codec.LatentCodec(pc, cfg, device=cuda_device, prec='f8')
+    res = lc.encode_batch(syms, centers)
+    dec = lc.decode_batch([r.bitstream for r in res], centers, verify=True)
+    assert torch.equal(dec.long(), syms.long())
