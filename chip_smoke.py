@@ -80,7 +80,7 @@ Phases, one line each:
      the real / theoretical / loss bpp and the real/theory overhead (at
      most 1%), 24 PNGs of 512x768, images a second by CUDA events around
      fetch_many and the codec calls; one fetch_many of the first bucket
-     under torch.profiler, its device time split by validate's val/<step>
+     under torch.profiler, its device time split by validate's ic.val.<step>
      ranges; val_torch.py --how_many 5 (one bucket of 5 padded to 8) gives
      the full sweep's first five rows exactly (pad_batch_to); a K=5 run
      (trained AE, seeded pc base, --how_many 4 --real_bpp) launches kernels
@@ -1314,7 +1314,7 @@ def validation_path(dev):
           f'{wall_b:.2f} s, saving the PNGs included)', flush=True)
 
     # Where a bucket's fetch_many goes: one call on the first bucket under
-    # torch.profiler, its device time by the val/<step> ranges of
+    # torch.profiler, its device time by the ic.val.<step> spans of
     # eval/validate.py (CUPTI kernel records under each range).
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
@@ -1326,12 +1326,12 @@ def validation_path(dev):
     traced_ms = ms['fetch'][0][0].elapsed_time(ms['fetch'][0][1])
     split = {}
     for e in prof.events():
-        if e.name.startswith('val/') and e.device_type == DeviceType.CPU:
-            split[e.name[4:]] = split.get(e.name[4:], 0.0) + e.device_time_total / 1e3
+        if e.name.startswith('ic.val.') and e.device_type == DeviceType.CPU:
+            split[e.name[7:]] = split.get(e.name[7:], 0.0) + e.device_time_total / 1e3
     split_txt = ({k: round(v, 3) for k, v in split.items()} if sum(split.values()) > 0
                  else 'not recorded (the profiler saw no device time)')
     print(f'[7 fetch_many split] one bucket of {VAL_BATCH} at {IMG_H}x{IMG_W}: device ms by '
-          f'step (torch.profiler, val/<step> ranges) {split_txt}, sum '
+          f'step (torch.profiler, ic.val.<step> spans) {split_txt}, sum '
           f'{sum(split.values()):.1f}; the traced call {traced_ms:.1f} ms (CUDA events, '
           f'profiler on)', flush=True)
 

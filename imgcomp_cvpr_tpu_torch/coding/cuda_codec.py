@@ -16,7 +16,10 @@ submit enqueues the device work on the current stream, starts non-blocking
 copies between pinned host buffers and the card, records an event and
 returns; a finish waits for that event only, then serializes or checks.
 So the host's serialize and parse of one batch overlap the card's work on
-the next (bench_torch.py's depth-2 pipeline).
+the next (bench_torch.py's depth-2 pipeline). While a profiler records,
+the finish calls' waits, serialize and parse (with the upload) are the
+spans ``codec.wait``, ``codec.serialize`` and ``codec.parse``
+(utils/spans.py), shared by every coder that uses these functions.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 
 from .. import resolve_device
 from ..models import probclass as pc_lib
+from ..utils.spans import span
 from . import codec as codec_lib
 from . import cuda_kernel as ck
 from . import rans
@@ -260,7 +264,7 @@ def _words_after(h: EncodeHandle, cols: int) -> np.ndarray:
         return h.words[:, :cols].numpy()
     side = torch.cuda.Stream(h.words.device)
     side.wait_event(h.event)
-    with torch.cuda.stream(side):
+    with span('codec.wait'), torch.cuda.stream(side):
         return h.words[:, :cols].cpu().numpy()
 
 
@@ -269,8 +273,9 @@ def finish_encode(h: EncodeHandle, cols_pred: dict) -> Tuple[codec_lib.EncodeRes
     out of range, re-encode with x0 = RANS_L when a lane's warmup passed
     K_CAP, and serialize. Records in ``cols_pred`` the stream words to copy
     for the next batch of this shape: this batch's longest stream + 1/8."""
-    if h.event is not None:
-        h.event.synchronize()
+    with span('codec.wait'):
+        if h.event is not None:
+            h.event.synchronize()
     if h.bad is not None and bool(h.bad):
         raise ValueError(f'symbols must lie in [0, {h.L})')
     words, n_words, states, kwarm, theo, crcs = (t.numpy() for t in h.host)
@@ -295,15 +300,16 @@ def serialize_batch(latent_shape, words, n_words, states, kwarm, theo, crcs,
     (container v11 with prec byte ``prec``); words (B, >= max n_words) in
     emission order."""
     results = []
-    for i in range(len(n_words)):
-        stream = words[i, :n_words[i]][::-1].astype(np.uint32)
-        bitstream = codec_lib.serialize_stream(
-            latent_shape, stream, states[i], int(crcs[i]), impl_id=impl_id,
-            prec=prec, k=kwarm[i] if tail else None)
-        results.append(codec_lib.EncodeResult(
-            bitstream=bitstream, num_bits=len(bitstream) * 8,
-            theoretical_bits=float(theo[i]),
-            symbols=None if host_syms is None else host_syms[i]))
+    with span('codec.serialize'):
+        for i in range(len(n_words)):
+            stream = words[i, :n_words[i]][::-1].astype(np.uint32)
+            bitstream = codec_lib.serialize_stream(
+                latent_shape, stream, states[i], int(crcs[i]), impl_id=impl_id,
+                prec=prec, k=kwarm[i] if tail else None)
+            results.append(codec_lib.EncodeResult(
+                bitstream=bitstream, num_bits=len(bitstream) * 8,
+                theoretical_bits=float(theo[i]),
+                symbols=None if host_syms is None else host_syms[i]))
     return tuple(results)
 
 
@@ -327,46 +333,48 @@ def parse_batch(bitstreams: Sequence[bytes], cap_of, totals_of,
     the planar and scan codecs write and decode 0 only): cap_of(shape) is
     the word capacity, totals_of(shape) the (r,) active symbols per lane, so
     a tail-packed lane has thresh = total - k (no pull in its last k)."""
-    parsed = [codec_lib.deserialize_stream(bs) for bs in bitstreams]
-    found = {codec_lib.stream_prec(bs) for bs in bitstreams}
-    if len(found) != 1:
-        raise ValueError(f'mixed stream precisions {sorted(found)} in one decode batch')
-    prec = found.pop()
-    if prec not in precs:
-        name = ck.PRECS[prec] if prec < len(ck.PRECS) else 'unknown'
-        why = (' (precisions 1 and 2 are the K=3 wavefront codec\'s, impl id 5)'
-               if prec < len(ck.PRECS) else '')
-        raise ValueError(
-            f'container precision {prec} ({name}) is not decodable here: this codec '
-            f'writes and decodes precision {", ".join(map(str, precs))} only' + why)
-    latent_shape = parsed[0][0]
-    if any(p[0] != latent_shape for p in parsed):
-        raise ValueError('mixed latent shapes in one decode batch')
-    b, cap, totals = len(parsed), cap_of(latent_shape), totals_of(latent_shape)
-    r = len(totals)
-    packed = np.zeros((b, max([1] + [len(p[1]) for p in parsed])), np.int32)
-    states = np.zeros((b, r), np.uint32)
-    thresh = np.full((b, r), _NO_THRESH, np.int32)
-    for i, (_, words, st, _crc, k) in enumerate(parsed):
-        if len(st) != r:
-            raise ValueError(f'stream has {len(st)} lanes, expected {r}')
-        if len(words) > cap:
-            raise ValueError(f'stream length {len(words)} exceeds the word cap {cap}')
-        packed[i, :len(words)] = words
-        states[i] = st
-        if k is not None:
-            thresh[i] = totals - k.astype(np.int32)
-    return ParsedBatch(latent_shape, packed, states.view(np.int32), thresh,
-                       tuple(p[3] for p in parsed), prec)
+    with span('codec.parse'):
+        parsed = [codec_lib.deserialize_stream(bs) for bs in bitstreams]
+        found = {codec_lib.stream_prec(bs) for bs in bitstreams}
+        if len(found) != 1:
+            raise ValueError(f'mixed stream precisions {sorted(found)} in one decode batch')
+        prec = found.pop()
+        if prec not in precs:
+            name = ck.PRECS[prec] if prec < len(ck.PRECS) else 'unknown'
+            why = (' (precisions 1 and 2 are the K=3 wavefront codec\'s, impl id 5)'
+                   if prec < len(ck.PRECS) else '')
+            raise ValueError(
+                f'container precision {prec} ({name}) is not decodable here: this codec '
+                f'writes and decodes precision {", ".join(map(str, precs))} only' + why)
+        latent_shape = parsed[0][0]
+        if any(p[0] != latent_shape for p in parsed):
+            raise ValueError('mixed latent shapes in one decode batch')
+        b, cap, totals = len(parsed), cap_of(latent_shape), totals_of(latent_shape)
+        r = len(totals)
+        packed = np.zeros((b, max([1] + [len(p[1]) for p in parsed])), np.int32)
+        states = np.zeros((b, r), np.uint32)
+        thresh = np.full((b, r), _NO_THRESH, np.int32)
+        for i, (_, words, st, _crc, k) in enumerate(parsed):
+            if len(st) != r:
+                raise ValueError(f'stream has {len(st)} lanes, expected {r}')
+            if len(words) > cap:
+                raise ValueError(f'stream length {len(words)} exceeds the word cap {cap}')
+            packed[i, :len(words)] = words
+            states[i] = st
+            if k is not None:
+                thresh[i] = totals - k.astype(np.int32)
+        return ParsedBatch(latent_shape, packed, states.view(np.int32), thresh,
+                           tuple(p[3] for p in parsed), prec)
 
 
 def upload_parsed(pb: ParsedBatch, cap: int, device: torch.device):
     """(streams (B, cap), states (B, R), thresh (B, R)) int32 on ``device``,
     uploaded without waiting; the words go up (B, W) and are padded with
     zeros to the kernels' capacity on the device."""
-    streams = torch.zeros(len(pb.crcs), cap, dtype=torch.int32, device=device)
-    streams[:, :pb.words.shape[1]] = upload(pb.words, device)
-    return streams, upload(pb.states, device), upload(pb.thresh, device)
+    with span('codec.parse'):
+        streams = torch.zeros(len(pb.crcs), cap, dtype=torch.int32, device=device)
+        streams[:, :pb.words.shape[1]] = upload(pb.words, device)
+        return streams, upload(pb.states, device), upload(pb.thresh, device)
 
 
 class DecodeHandle(NamedTuple):
@@ -391,8 +399,9 @@ def finish_decode(h: DecodeHandle, verify: bool = True, device_out: bool = True)
     reference returns. With ``verify``, waits for h's event and raises
     unless every image's device-computed checksum matches its container's."""
     if verify:
-        if h.event is not None:
-            h.event.synchronize()
+        with span('codec.wait'):
+            if h.event is not None:
+                h.event.synchronize()
         got = h.host_crcs.numpy()
         for i, want in enumerate(h.crcs):
             if int(got[i]) != want:

@@ -25,7 +25,10 @@ submit enqueues and returns, finish waits for its batch's event only.
 Bias rows are F.conv2d (TF32 off) run one image and one plane at a time, on
 the same (1, (kd-1) * cin, H_l, W_l) input in encode and decode: every float
 that feeds a CDF is then a fixed function of one image's data, whatever the
-batch, so a stream decodes alone exactly as it was encoded in a batch.
+batch, so a stream decodes alone exactly as it was encoded in a batch. That
+is 4 B C convolutions a batch each way, counted in
+``build.LAUNCHES['bias_row_conv']``; each block of them (one a level in
+encode, one a plane in decode) is the span ``planar.bias_rows``.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..models import probclass as pc_lib
+from ..ops.kernels import build
+from ..utils.spans import span
 from . import codec as codec_lib
 from . import cuda_codec
 from . import planar
@@ -118,11 +123,13 @@ class PlanarCoder:
         """The plane's 4 bias rows (b, Hl, Wl, cout): sum_j conv2d(act_{l-1}
         [d-kd+1+j], w_l[j]) + b_l, one image per conv call."""
         rows = []
-        for l in range(4):
-            x = torch.cat(hist[l], 1)
-            y = torch.cat([F.conv2d(x[i:i + 1], fold.low[l], fold.bias[l])
-                           for i in range(x.shape[0])])
-            rows.append(y.permute(0, 2, 3, 1).contiguous())
+        with span('planar.bias_rows'):
+            for l in range(4):
+                x = torch.cat(hist[l], 1)
+                y = torch.cat([F.conv2d(x[i:i + 1], fold.low[l], fold.bias[l])
+                               for i in range(x.shape[0])])
+                rows.append(y.permute(0, 2, 3, 1).contiguous())
+        build.LAUNCHES['bias_row_conv'] += 4 * x.shape[0]
         return tuple(rows)
 
     @staticmethod
@@ -158,13 +165,16 @@ class PlanarCoder:
             # first: plane d's conv input is a contiguous slice, the same
             # (1, (kd-1)*ch, Hs, Ws) tensor that decode's bias_rows builds.
             ch, gs = below.shape[2], sched.grids[l]
-            hist = consts[l][None, None, :, None, None].expand(b, kd - 1, ch, *gs)
-            vol = torch.cat([hist, below], 1)
-            rows = torch.stack([
-                torch.cat([F.conv2d(vol[i, d:d + kd - 1].reshape(1, (kd - 1) * ch, *gs),
-                                    fold.low[l], fold.bias[l]) for i in range(b)])
-                for d in range(C)], 1)                    # (b, C, cout, Hl, Wl)
-            bias = rows.permute(0, 1, 3, 4, 2).reshape((b * C,) + sched.grids[l + 1] + (-1,))
+            with span('planar.bias_rows'):
+                hist = consts[l][None, None, :, None, None].expand(b, kd - 1, ch, *gs)
+                vol = torch.cat([hist, below], 1)
+                rows = torch.stack([
+                    torch.cat([F.conv2d(vol[i, d:d + kd - 1].reshape(1, (kd - 1) * ch, *gs),
+                                        fold.low[l], fold.bias[l]) for i in range(b)])
+                    for d in range(C)], 1)                # (b, C, cout, Hl, Wl)
+                bias = rows.permute(0, 1, 3, 4, 2).reshape(
+                    (b * C,) + sched.grids[l + 1] + (-1,))
+            build.LAUNCHES['bias_row_conv'] += b * C
             out = level(l + 1, fold.top, latent_shape, self.K, src,
                                    bias.contiguous(), skip=act1 if l == 2 else None)
             if l == 0:

@@ -18,10 +18,11 @@ kernels, whose default algorithms sum in an order that changes from run to
 run, which would move the output pixels, PSNR and MS-SSIM of the same
 checkpoint between two validations.
 
-A pass's steps run in ``torch.profiler.record_function`` ranges named
-``val/<step>`` (upload, ae_encode, ae_decode, bitcost, msssim, psnr,
-to_host), so a profiler trace of ``fetch_many`` splits its device time by
-step.
+While a torch profiler records, a pass's steps are spans
+(``utils/spans.py``): ``record_function`` ranges named ``ic.val.<step>``
+(upload, ae_encode, ae_decode, bitcost, msssim, psnr, to_host), so a
+profiler trace of ``fetch_many`` splits its device time by step. With no
+profiler recording they do not exist and cost one flag read each.
 
 Data parallelism (the JAX package's mesh path, validate.py:115-127): an
 EvalModel given a list of devices holds one copy of the model on each, pads
@@ -43,7 +44,6 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import resolve_device
 from ..data.images_iterator import ImagesIterator
@@ -55,6 +55,7 @@ from ..training import checkpoint as checkpoint_lib
 from ..utils import config as config_lib
 from ..utils import constants
 from ..utils import logdir as logdir_lib
+from ..utils.spans import span
 from . import codec_distance as cd
 from .val_files import MeasuresWriter, ValidationDirs
 
@@ -104,22 +105,22 @@ class EvalModel:
         # raise the bpp of an image whose sides are not multiples of 8).
         crop = (slice(None), slice(hp_lo, hp_lo + oh), slice(wp_lo, wp_lo + ow))
         with deterministic_cudnn():
-            with record_function('val/ae_encode'):
+            with span('val.ae_encode'):
                 enc = ae.encode(x)
-            with record_function('val/ae_decode'):
+            with span('val.ae_decode'):
                 x_out = ae.decode(enc.qhard)
             centers = ae.encoder.centers
             # bitcost from qbar at eval (ref: val.py:88)
-            with record_function('val/bitcost'):
+            with span('val.bitcost'):
                 bc = pc.bitcost(enc.qbar, enc.symbols,
                                 pc_lib.auto_pad_value(self.pc_config, centers, pc))
             xc = x[crop]
             oc_uint8 = x_out.to(torch.uint8)[crop]
             oc = oc_uint8.to(torch.float32)
-            with record_function('val/msssim'):
+            with span('val.msssim'):
                 msssim = torch.stack([msssim_lib.msssim_eval(xc[i:i + 1], oc[i:i + 1])
                                       for i in range(x.shape[0])])
-        with record_function('val/psnr'):
+        with span('val.psnr'):
             psnr = metrics_lib.psnr_per_image(xc, oc, cast_to_int=True)
         return {
             'bpp': bc.sum((1, 2, 3)) / float(oh * ow),
@@ -151,10 +152,10 @@ class EvalModel:
         per = n // len(self.devices)
         outs = []
         for i, (dev, replica) in enumerate(zip(self.devices, self._replicas)):
-            with record_function('val/upload'):
+            with span('val.upload'):
                 x = torch.from_numpy(batch[i * per:(i + 1) * per]).to(dev)
             outs.append(self._fetch(replica, x, tuple(pad_info)))
-        with record_function('val/to_host'):
+        with span('val.to_host'):
             out = {k: np.concatenate([o[k].cpu().numpy() for o in outs])[:n_real]
                    for k in outs[0]}
         return [{k: v[i] for k, v in out.items()} for i in range(n_real)]

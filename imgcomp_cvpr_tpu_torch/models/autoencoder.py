@@ -34,6 +34,7 @@ from torch import nn
 from .. import resolve_device
 from ..ops import tf_compat
 from ..parallel import mesh as mesh_lib
+from ..utils.spans import span
 from . import quantizer as quantizer_lib
 
 ARCH_PARAM_N = 128
@@ -199,11 +200,13 @@ class CVPRAutoencoder(nn.Module):
 
     @torch.no_grad()
     def encode(self, x_nhwc: torch.Tensor) -> EncoderOutput:
-        return self.encoder(x_nhwc, False)
+        with span('ae.encode'):
+            return self.encoder(x_nhwc, False)
 
     @torch.no_grad()
     def decode(self, q_nhwc: torch.Tensor) -> torch.Tensor:
-        return self.decoder(q_nhwc, False)
+        with span('ae.decode'):
+            return self.decoder(q_nhwc, False)
 
 
 def init_params(ae: CVPRAutoencoder, seed: int) -> CVPRAutoencoder:

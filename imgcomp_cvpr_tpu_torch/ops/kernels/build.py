@@ -11,7 +11,9 @@ the CPU tests import it and never build.
 
 Launch counters: each wrapper adds one to ``LAUNCHES[name]`` where it
 launches its kernel, and nowhere else (``reset_launches`` zeroes them), so a
-run can show that the main path went through the kernels.
+run can show that the main path went through the kernels. One counter is
+not a kernel wrapper: ``bias_row_conv`` counts the planar codec's bias-row
+``F.conv2d`` calls (cuDNN's, 8 B C a batch encoded and decoded).
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ LAUNCHES: Dict[str, int] = {
     'plane_forward_encode_scan': 0,
     'plane_forward_decode': 0,
     'plane_reverse': 0,
+    'bias_row_conv': 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

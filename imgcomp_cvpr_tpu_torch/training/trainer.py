@@ -6,9 +6,11 @@ The state is a ``TrainState`` of modules and optimizer, updated in place by
 state is the one passed in). A train step is forward (AE in train mode ->
 kernel 1 -> decoder on qbar; context model on the detached qbar) ->
 loss -> backward (kernel 7 under QuantizeFn) -> the three optimizer
-groups. The reference's multi-step dispatch (``_train_multi``, a scan that
-hides its remote-dispatch latency) has no counterpart: PyTorch enqueues
-each step's kernels without waiting for the device.
+groups. While a profiler records, the phases are spans (utils/spans.py):
+``train.forward``, ``train.backward``, ``train.all_reduce`` with a mesh,
+``train.optimizer``. The reference's multi-step dispatch (``_train_multi``,
+a scan that hides its remote-dispatch latency) has no counterpart: PyTorch
+enqueues each step's kernels without waiting for the device.
 
 With a ``mesh`` (parallel/mesh.py) the trainer is one rank of a
 data-parallel group: a step takes this rank's slice of the global batch,
@@ -33,6 +35,7 @@ from ..models import probclass as pc_lib
 from ..ops import bits as bits_lib
 from ..ops import msssim as msssim_lib
 from ..parallel import mesh as mesh_lib
+from ..utils.spans import span
 from . import distortions as distortions_lib
 from . import losses as losses_lib
 from . import optimizers as opt_lib
@@ -123,12 +126,16 @@ class Trainer:
         """One update of ``state`` in place. comps are 0-d tensors on the
         device (no host sync here)."""
         state.optimizer.zero_grad()
-        total, comps = self.loss_fn(state, batch)
-        total.backward()
+        with span('train.forward'):
+            total, comps = self.loss_fn(state, batch)
+        with span('train.backward'):
+            total.backward()
         if self.mesh is not None:
-            mesh_lib.all_reduce_grads([*state.ae.parameters(), *state.pc.parameters()],
-                                      self.mesh)
-        state.optimizer.step()
+            with span('train.all_reduce'):
+                mesh_lib.all_reduce_grads([*state.ae.parameters(), *state.pc.parameters()],
+                                          self.mesh)
+        with span('train.optimizer'):
+            state.optimizer.step()
         state.step += 1
         return state, {k: v.detach() for k, v in comps.items()}
 
