@@ -52,6 +52,14 @@ Phases, one line each:
      under torch.cuda.set_sync_debug_mode('error') (no wait for the card);
      the bf16 round trip CRC-verified, its symbols' agreement with the f32
      towers' (>= 99%) and both PSNRs; one-image roundtrip and decode;
+  4d. the AE's fused eval-mode conv epilogue (csrc/ae_epilogue.cu) on the
+     main path's own conv outputs: phase 4's path with the trained towers
+     in bf16 (the serving towers) at B=16 and B=1 and in f32 at B=16, every
+     one of the 70 epilogue calls of a round trip (packed and transposed-
+     conv crop views, 0-2 residuals, C = 3, 33, 64 and 128) held bit for bit
+     against epilogue_plain on its operands, the launches read from each
+     pass's own counters; then each distinct call timed, kernel and plain
+     chain, as CUDA-graph replays, beside its byte bound;
   4b. context models whose weights pass a block's shared memory (kf = 64,
      seeded): the K=3 main path with `pc cvpr/res_shallow_64` and the
      trained AE at B=16, kernel 2's tables there against its scan and its
@@ -157,7 +165,10 @@ Phases, one line each:
      also give the device time a call (``device_ms``, torch.profiler's
      CUPTI kernel records; ``ms`` is this one), the time a call inside a
      CUDA graph (``graph_ms``), the host us a wrapper call and the kernels
-     it launches (quantizer_times).
+     it launches (quantizer_times). The ``ae_epilogue`` row has no Pallas
+     counterpart (XLA fused the chain on the TPU): its ms, plain_ms and
+     bound are sums over the bf16 B=16 round trip's 70 calls, ``passes``
+     gives each pass of phase 4d by call.
 The last line is {"ok": true, "device": {...}}. Any failed check raises,
 which exits non-zero before that line is printed.
 """
@@ -258,9 +269,28 @@ def quantizer_times(fn, match, calls=50):
                  for e in recs)
     records = sum(e.count for e in recs)
     per_call = round(records / calls)
+    g_ms = graph_ms(fn, calls)
+    runs = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(50):
+            fn()
+        runs.append((time.perf_counter() - t) / 50 * 1e6)
+    torch.cuda.synchronize()
+    return dict(device_ms=dev_us / records * per_call / 1e3 if records else None,
+                launches_per_call=per_call if records else None, records=records,
+                graph_ms=g_ms, host_us_per_call=float(np.median(runs)))
+
+
+def graph_ms(fn, calls):
+    """Device ms a call of fn(): CUDA events around 5 replays of a CUDA graph
+    of `calls` calls (no host work between the kernels; the launch gaps
+    inside the graph included), after a warm-up call on the capture stream."""
+    import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):       # warm-up on the capture stream
+    with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
@@ -276,19 +306,9 @@ def quantizer_times(fn, match, calls=50):
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    graph_ms = start.elapsed_time(end) / (5 * calls)
+    ms = start.elapsed_time(end) / (5 * calls)
     del graph
-    runs = []
-    for _ in range(10):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(50):
-            fn()
-        runs.append((time.perf_counter() - t) / 50 * 1e6)
-    torch.cuda.synchronize()
-    return dict(device_ms=dev_us / records * per_call / 1e3 if records else None,
-                launches_per_call=per_call if records else None, records=records,
-                graph_ms=graph_ms, host_us_per_call=float(np.median(runs)))
+    return ms
 
 
 def quantizer_line(label, t, bound_ms):
@@ -2109,6 +2129,113 @@ def roundtrip_line(rt):
             f'{rt["wall"] * 1e3:.1f} ms = {rt["mp"] / rt["wall"]:.4f} MP/s enc+dec')
 
 
+def same_bits(a, b):
+    """True where a and b have the same dtype, shape and bits, NaN payloads
+    aside (a NaN must stay a NaN)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    a, b = a.contiguous(), b.contiguous()
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(a.view(bits)[~nan], b.view(bits)[~nan])
+
+
+def ae_epilogue_path(dev, ae_config, ae, lc, x, centers, rows):
+    """Phase 4d: the AE's fused eval-mode conv epilogue on phase 4's main
+    path. The trained towers in bf16 at B=16 and B=1 and in f32 at B=16
+    each run main_path (K=3) with ``ae_epilogue.epilogue`` wrapped: every
+    call's kernel output is held against epilogue_plain on the same operands
+    (the conv output as the conv left it, the folded BatchNorm operands, the
+    residuals) bit for bit; the pass's launches, read from its own reset
+    counters, must be 35 + 35. Then one encode and decode of the same images
+    times each distinct call (dtype, shape, residuals, crop view, ReLU) the
+    first time it comes: kernel and plain chain each as a CUDA graph of 20
+    calls (graph_ms), beside its bound (y, the residuals and the output read
+    or written once, at 3.35 TB/s). Raises on any mismatch. Fills
+    rows['ae_epilogue'] (sums over the bf16 B=16 pass's 70 calls) and
+    returns that pass's launches."""
+    import torch
+    from imgcomp_cvpr_tpu_torch.models import autoencoder as ae_lib
+    from imgcomp_cvpr_tpu_torch.ops.kernels import ae_epilogue as epi
+    t_phase = time.time()
+    ae16 = ae_lib.CVPRAutoencoder(ae_config, device=dev, dtype=torch.bfloat16)
+    ae16.load_state_dict(ae.state_dict())          # the trained float32 parameters
+    real = epi.epilogue
+    cl = torch.channels_last
+
+    def call_key(y, act, residuals):
+        return (str(y.dtype).split('.')[-1], tuple(y.shape), len(residuals),
+                not y.is_contiguous(memory_format=cl), bool(act))
+
+    passes, launches = {}, {}
+    try:
+        for label, model, xb in (('bf16_b16', ae16, x), ('bf16_b1', ae16, x[:1]),
+                                 ('f32_b16', ae, x)):
+            keys = []
+
+            def checked(y, mean, mul, bias, act, residuals=()):
+                out = real(y, mean, mul, bias, act, residuals)
+                keys.append(call_key(y, act, residuals))
+                if not same_bits(out, epi.epilogue_plain(y, mean, mul, bias, act, residuals)):
+                    raise AssertionError(f'4d ae_epilogue {label}: call {len(keys)} '
+                                         f'{keys[-1]} differs from epilogue_plain')
+                return out
+
+            epi.epilogue = checked
+            launches[label], _ = main_path(model, lc, xb, centers)
+            n_launch = launches[label]['ae_epilogue']
+            if n_launch != 70 or len(keys) != 70:
+                raise AssertionError(f'4d ae_epilogue {label}: {n_launch} launches, {len(keys)} '
+                                     f'calls a round trip, not 35 + 35')
+            times = {}
+
+            def timed(y, mean, mul, bias, act, residuals=()):
+                key = call_key(y, act, residuals)
+                if key not in times:
+                    args = (y, mean, mul, bias, act, residuals)
+                    nbytes = y.element_size() * y.numel() * (2 + len(residuals)) + 12 * y.shape[1]
+                    times[key] = (graph_ms(lambda: real(*args), 20),
+                                  graph_ms(lambda: epi.epilogue_plain(*args), 20),
+                                  bound(nbytes, 0)[0])
+                return real(y, mean, mul, bias, act, residuals)
+
+            epi.epilogue = timed
+            with torch.no_grad():
+                model.decode(model.encode(xb).qhard)
+            torch.cuda.synchronize()
+            calls = [dict(dtype=k[0], shape=list(k[1]), residuals=k[2], crop=k[3], act=k[4],
+                          calls=keys.count(k), ms=t[0], plain_ms=t[1], bound_ms=t[2])
+                     for k, t in times.items()]
+            if sum(c['calls'] for c in calls) != 70:
+                raise AssertionError(f'4d ae_epilogue {label}: the timed pass made other calls')
+            passes[label] = dict(
+                launches=n_launch, calls=calls,
+                ms=sum(c['calls'] * c['ms'] for c in calls),
+                plain_ms=sum(c['calls'] * c['plain_ms'] for c in calls),
+                bound_ms=sum(c['calls'] * c['bound_ms'] for c in calls))
+    finally:
+        epi.epilogue = real
+    for label, p in passes.items():
+        print(f'[4d ae_epilogue {label}] {p["launches"]} launches a round trip, every call bit '
+              f'for bit its plain chain; a round trip\'s epilogues {p["ms"]:.3f} ms (plain '
+              f'chain {p["plain_ms"]:.3f} ms, bound {p["bound_ms"]:.3f} ms); by call (dtype, '
+              f'shape, residuals, crop, ReLU: calls, us kernel / plain / bound): '
+              + '; '.join(f'{c["dtype"]} {c["shape"]} r{c["residuals"]}'
+                          f'{" crop" if c["crop"] else ""}{" relu" if c["act"] else ""}: '
+                          f'{c["calls"]}, {c["ms"] * 1e3:.1f} / {c["plain_ms"] * 1e3:.1f} / '
+                          f'{c["bound_ms"] * 1e3:.1f}' for c in p['calls']), flush=True)
+    main = passes['bf16_b16']
+    rows['ae_epilogue'] = dict(
+        route='cuda', source='imgcomp_cvpr_tpu_torch/csrc/ae_epilogue.cu', replaces=None,
+        max_abs_err=0.0, ms=main['ms'], plain_ms=main['plain_ms'],
+        bound=(main['bound_ms'], 'bytes'), library_ms=None, passes=passes)
+    print(f'[4d phase time] {time.time() - t_phase:.1f} s', flush=True)
+    return launches['bf16_b16']
+
+
 def k3_streams(fsel, ssel, shape):
     """Kernel 3 (x0 = 1) on (B, T, CQ) tables -> (kernel 2's decode inputs:
     dict(streams (B, cap) in decode order, init_states, thresh), the words
@@ -3117,6 +3244,9 @@ def main(argv):
     launches['4c'] = serving_path(dev, ae_config, ae, lc, lc5, pc, pc_config, pc5, pc5_config,
                                   x, centers, one_pass_mps)
 
+    # ---- phase 4d: the AE's fused conv epilogue on the main path ---------
+    launches['4d'] = ae_epilogue_path(dev, ae_config, ae, lc, x, centers, rows)
+
     # ---- phase 4b: context models past shared memory (kf = 64) -----------
     launches['4b'] = wide_context_models(dev, ae, ae_config, x, centers, fw)
 
@@ -3143,7 +3273,7 @@ def main(argv):
                         (4, 'wavefront_forward_encode'),
                         (4, 'wavefront_forward_decode'), (4, 'rans_reverse'),
                         (5, 'plane_forward_encode'), (5, 'plane_forward_decode'),
-                        (5, 'plane_reverse')):
+                        (5, 'plane_reverse'), ('4d', 'ae_epilogue')):
         # quantize_train is kernel 1 again: the wrapper's one counter, as
         # the training phase read it.
         n_launch = launches[phase]['quantize' if name == 'quantize_train' else name]
@@ -3151,6 +3281,11 @@ def main(argv):
             raise AssertionError(f'kernel {name} was not launched on main path {phase}')
         if name == 'plane_forward_encode' and n_launch > 5:
             raise AssertionError(f'kernel 5 encode took {n_launch} launches a batch')
+        if name == 'ae_epilogue' and (launches[4][name], launches[5][name],
+                                      launches[9]['train'][name]) != (70, 70, 0):
+            raise AssertionError(f'ae_epilogue: {launches[4][name]} and {launches[5][name]} '
+                                 f'launches on main paths 4 and 5 (not 70), '
+                                 f'{launches[9]["train"][name]} in 9b\'s train steps (not 0)')
         r = rows[name]
         b_ms, b_by = r.pop('bound')
         kernels.append(dict(name=name, route=r['route'], source=r['source'],
@@ -3167,6 +3302,8 @@ def main(argv):
         kernels[-1]['launches_parallel'] = (
             launches[9]['train']['quantize' if name == 'quantize_train' else name]
             if name in ('quantize_train', 'quantize_bwd') else launches[9]['val'][name])
+        if 'passes' in r:       # the AE epilogue: phase 4d by pass and call
+            kernels[-1]['passes'] = r['passes']
         if 'quantizer' in r:    # kernels 1 and 7: device time beside the host's
             q = r['quantizer']
             kernels[-1].update(device_ms=q['device_ms'], graph_ms=q['graph_ms'],

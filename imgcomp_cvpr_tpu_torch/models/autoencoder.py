@@ -7,10 +7,11 @@ match flax's (eps 1e-5, (x - mean) * (scale * rsqrt(var + eps)) + bias):
 with ``train`` it normalizes with the batch mean and the biased batch
 variance E[x^2] - E[x]^2 (clipped at 0) and moves the running statistics
 as ra = 0.9 ra + 0.1 batch with that same biased variance; without, it
-uses the running statistics. The towers run NCHW internally; the public
-methods take and return NHWC like the JAX package. Module and parameter
-names mirror the flax tree so weights.py can map a parameter tree one key
-to one tensor.
+uses the running statistics. The towers run NCHW internally (in eval mode
+on the card, NCHW tensors in channels-last memory, which the public NHWC
+inputs already are); the public methods take and return NHWC like the JAX
+package. Module and parameter names mirror the flax tree so weights.py can
+map a parameter tree one key to one tensor.
 
 ``dtype`` is the towers' compute dtype, as in the reference (its
 autoencoder.py:65-80, 100, 135, 174); the parameters stay float32. Each conv
@@ -25,14 +26,16 @@ denormalize and clip run in float32. Training runs float32 only.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from .. import resolve_device
 from ..ops import tf_compat
+from ..ops.kernels import ae_epilogue as epilogue_lib
 from ..parallel import mesh as mesh_lib
 from ..utils.spans import span
 from . import quantizer as quantizer_lib
@@ -54,7 +57,18 @@ class EncoderOutput(NamedTuple):
 
 
 class SlimConv(nn.Module):
-    """conv (no bias) -> BatchNorm -> optional ReLU, TF-'SAME', NCHW."""
+    """conv (no bias) -> BatchNorm -> optional ReLU -> optional residual
+    adds, TF-'SAME', NCHW.
+
+    Without ``train`` the weight in ``dtype`` and the BatchNorm operands
+    (running mean, mul = rsqrt(var + eps) * scale, bias) are folded once per
+    parameter state (keyed on each tensor's storage and version counter, so
+    load_state_dict, an optimizer step or a running-statistics update folds
+    again), a symmetric pad goes to the conv instead of a padded copy, and
+    the chain after the conv is ``ae_epilogue.epilogue``: on the card one
+    kernel over channels-last activations, on the CPU the eager chain. With
+    ``train`` (float32, autograd, batch statistics) it is the eager chain
+    after the conv on a padded copy, NCHW."""
 
     BN_MOMENTUM = 0.9
     BN_EPS = 1e-5
@@ -72,46 +86,83 @@ class SlimConv(nn.Module):
         self.bn_bias = nn.Parameter(torch.zeros(features))
         self.register_buffer('bn_mean', torch.zeros(features))
         self.register_buffer('bn_var', torch.ones(features))
+        # (key, source tensors, (w, mean, mul, bias)); holding the sources keeps
+        # their storage, and so a key, from being reused by other tensors
+        self._folded = None
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        dt = self.dtype
-        if train and dt != torch.float32:
-            raise ValueError(f'train mode runs float32 towers only, not {dt}')
-        w = self.weight.to(dt)
+    def _conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         if self.transpose:
-            y = tf_compat.conv2d_transpose_same_nchw(x.to(dt), w, self.stride)
-        else:
-            y = tf_compat.conv2d_same_nchw(x.to(dt), w, self.stride)
-        y = y.float()
-        if train:
-            # global-batch statistics under data parallelism (parallel/mesh.py)
-            mean = mesh_lib.batch_mean(y, (0, 2, 3))
-            var = torch.clamp(mesh_lib.batch_mean(torch.square(y), (0, 2, 3))
-                              - torch.square(mean), min=0.0)
-            with torch.no_grad():   # the running statistics, updated in place
-                m = self.BN_MOMENTUM
-                self.bn_mean.mul_(m).add_(mean, alpha=1 - m)
-                self.bn_var.mul_(m).add_(var, alpha=1 - m)
-        else:
-            mean, var = self.bn_mean, self.bn_var
+            return tf_compat.conv2d_transpose_same_nchw(x, w, self.stride)
+        return tf_compat.conv2d_same_nchw(x, w, self.stride)
+
+    def _eval_conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``_conv``, with a symmetric TF-SAME pad (every stride-1 conv of odd
+        k) given to the convolution as ``padding=`` instead of a padded copy."""
+        if not self.transpose:
+            ph = tf_compat.same_pad_amounts(x.shape[2], w.shape[2], self.stride)
+            pw = tf_compat.same_pad_amounts(x.shape[3], w.shape[3], self.stride)
+            if ph[0] == ph[1] and pw[0] == pw[1]:
+                return F.conv2d(x, w, stride=self.stride, padding=(ph[0], pw[0]))
+        return self._conv(x, w)
+
+    def _eval_operands(self):
+        """(w in dtype, mean, mul, bias): folded once per parameter state; with
+        autograd on and parameters that need grad, built anew with their graph."""
+        srcs = (self.weight, self.bn_scale, self.bn_bias, self.bn_mean, self.bn_var)
+        if torch.is_grad_enabled() and self.weight.requires_grad:
+            mul = torch.rsqrt(self.bn_var + self.BN_EPS) * self.bn_scale
+            return self.weight.to(self.dtype), self.bn_mean, mul, self.bn_bias
+        key = tuple((t.data_ptr(), t._version) for t in srcs)
+        if self._folded is None or self._folded[0] != key:
+            with torch.no_grad():
+                w = self.weight.detach().to(self.dtype)
+                if w.is_cuda:
+                    w = w.contiguous(memory_format=torch.channels_last)
+                mul = torch.rsqrt(self.bn_var + self.BN_EPS) * self.bn_scale
+                ops = (w, self.bn_mean.detach(), mul.detach(), self.bn_bias.detach())
+            self._folded = (key, srcs, ops)
+        return self._folded[2]
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                residuals: Sequence[torch.Tensor] = ()) -> torch.Tensor:
+        """``residuals`` (at most two, in ``dtype``) are added in order after
+        the ReLU, each rounded to ``dtype``."""
+        dt = self.dtype
+        if not train:
+            w, mean, mul, bias = self._eval_operands()
+            x = x.to(dt, memory_format=torch.channels_last) if x.is_cuda else x.to(dt)
+            y = self._eval_conv(x, w)
+            return epilogue_lib.epilogue(y, mean, mul, bias, self.act, residuals)
+        if dt != torch.float32:
+            raise ValueError(f'train mode runs float32 towers only, not {dt}')
+        y = self._conv(x.to(dt), self.weight.to(dt)).float()
+        # global-batch statistics under data parallelism (parallel/mesh.py)
+        mean = mesh_lib.batch_mean(y, (0, 2, 3))
+        var = torch.clamp(mesh_lib.batch_mean(torch.square(y), (0, 2, 3))
+                          - torch.square(mean), min=0.0)
+        with torch.no_grad():   # the running statistics, updated in place
+            m = self.BN_MOMENTUM
+            self.bn_mean.mul_(m).add_(mean, alpha=1 - m)
+            self.bn_var.mul_(m).add_(var, alpha=1 - m)
         mul = torch.rsqrt(var + self.BN_EPS) * self.bn_scale
-        y = ((y - mean[:, None, None]) * mul[:, None, None]
-             + self.bn_bias[:, None, None]).to(dt)
-        return torch.relu(y) if self.act else y
+        return epilogue_lib.epilogue_plain(y, mean, mul, self.bn_bias, self.act, residuals)
 
 
 class ResidualBlock(nn.Module):
     """Two 3x3 convs (BN after each, ReLU between) + identity skip;
-    act=False drops the ReLU of both (ref autoencoder.py:274-287)."""
+    act=False drops the ReLU of both (ref autoencoder.py:274-287).
+    ``skip``, when given, is the tower's group skip, added after the
+    identity in the same epilogue."""
 
     def __init__(self, features: int, act: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv1 = SlimConv(features, features, 3, act=act, dtype=dtype)
         self.conv2 = SlimConv(features, features, 3, act=False, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        y = self.conv2(self.conv1(x, train), train)
-        return y + x.to(y.dtype)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+        residuals = (x,) if skip is None else (x, skip)
+        return self.conv2(self.conv1(x, train), train, residuals)
 
 
 class Encoder(nn.Module):
@@ -137,9 +188,9 @@ class Encoder(nn.Module):
         for b in range(cfg.arch_param_B):
             residual_input_b = net
             for i in range(3):
-                net = getattr(self, f'res_block_enc_{b}_{i + 1}')(net, train)
-            net = net + residual_input_b
-        net = self.res_block_enc_final(net, train) + residual_input_0
+                net = getattr(self, f'res_block_enc_{b}_{i + 1}')(
+                    net, train, residual_input_b if i == 2 else None)
+        net = self.res_block_enc_final(net, train, residual_input_0)
         net = self.to_bn(net, train).permute(0, 2, 3, 1).float()
         if cfg.heatmap:
             heatmap = get_heatmap3d(net)
@@ -171,9 +222,9 @@ class Decoder(nn.Module):
         for b in range(cfg.arch_param_B):
             residual_input_b = net
             for i in range(3):
-                net = getattr(self, f'res_block_dec_{b}_{i + 1}')(net, train)
-            net = net + residual_input_b
-        net = self.dec_after_res(net, train) + residual_input_0
+                net = getattr(self, f'res_block_dec_{b}_{i + 1}')(
+                    net, train, residual_input_b if i == 2 else None)
+        net = self.dec_after_res(net, train, residual_input_0)
         net = self.h13(self.h12(net, train), train).permute(0, 2, 3, 1).float()
         return torch.clamp(denormalize(net, cfg.normalization), 0.0, 255.0)
 

@@ -14,10 +14,15 @@ launches its kernel, and nowhere else (``reset_launches`` zeroes them), so a
 run can show that the main path went through the kernels. One counter is
 not a kernel wrapper: ``bias_row_conv`` counts the planar codec's bias-row
 ``F.conv2d`` calls (cuDNN's, 8 B C a batch encoded and decoded).
+``ae_epilogue`` counts the autoencoder's fused eval-mode conv epilogue
+(``csrc/ae_epilogue.cu``, ``ops/kernels/ae_epilogue.py``): one a convolution
+on the card, 70 a round trip of the CVPR towers (35 encode, 35 decode), 0
+in training.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -32,7 +37,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build', 'torch_kernels')
 SOURCES = ('quantize', 'quantize_bwd', 'wavefront_forward', 'rans_reverse',
-           'plane_forward')
+           'plane_forward', 'ae_epilogue')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
@@ -55,6 +60,7 @@ LAUNCHES: Dict[str, int] = {
     'plane_forward_decode': 0,
     'plane_reverse': 0,
     'bias_row_conv': 0,
+    'ae_epilogue': 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -127,6 +133,13 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a kernel's C entry."""
     if err != 0:
         raise RuntimeError(f'{what}: CUDA launch failed with cudaError {err}')
+
+
+def on_device(device: torch.device):
+    """torch.cuda.device(device), or nothing where it is current already."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -16,7 +16,6 @@ and ticket counter per (device, stream), made on the first call there.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import Callable, Dict, Optional, Tuple
 
@@ -119,13 +118,6 @@ def _bind(entry: str) -> Callable:
     return fn
 
 
-def _on(device: torch.device):
-    """torch.cuda.device(device), or nothing where it is current already."""
-    if device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
 def _empty_like_aligned(x: torch.Tensor, dtype: torch.dtype, off: int) -> torch.Tensor:
     """An empty 4-byte tensor of x's shape that starts ``off`` elements past a
     16-byte boundary, as x does (off = x.data_ptr() % 16 // 4), so that the
@@ -150,7 +142,7 @@ def quantize_fwd(x: torch.Tensor, centers: torch.Tensor, sigma: float = 1.0
     qhard = _empty_like_aligned(xc, torch.float32, off)
     sym = _empty_like_aligned(xc, torch.int32, off)
     fn = _bind('quantize_fwd')
-    with _on(xc.device):
+    with build.on_device(xc.device):
         err = fn(xc.data_ptr(), xc.numel(), cc.data_ptr(), cc.shape[0], float(sigma),
                  qsoft.data_ptr(), qhard.data_ptr(), sym.data_ptr(),
                  torch.cuda.current_stream().cuda_stream)
@@ -199,7 +191,7 @@ def quantize_bwd(x: torch.Tensor, centers: torch.Tensor,
     dx = _empty_like_aligned(xc, torch.float32, xc.data_ptr() % 16 // 4)
     dcenters = torch.empty(L, dtype=torch.float32, device=xc.device)
     fn = _bind('quantize_bwd')
-    with _on(xc.device):
+    with build.on_device(xc.device):
         stream = torch.cuda.current_stream().cuda_stream
         partial, counter = _scratch(xc.device, stream)
         err = fn(xc.data_ptr(), None if gc is None else gc.data_ptr(),

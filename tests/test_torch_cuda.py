@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import ae_eager
 from imgcomp_cvpr_tpu_torch.coding import codec, cuda_codec, cuda_kernel as ck, rans
 from imgcomp_cvpr_tpu_torch.coding import planar, planar_codec, planar_kernel as plk
 from imgcomp_cvpr_tpu_torch.models import probclass as pcl
@@ -926,3 +927,122 @@ def test_k3_f8_activation_past_464_kernel_equals_plain_and_roundtrips(cuda_devic
     res = lc.encode_batch(syms, centers)
     dec = lc.decode_batch([r.bitstream for r in res], centers, verify=True)
     assert torch.equal(dec.long(), syms.long())
+
+
+# ---------------------------------------------------------------------------
+# The autoencoder's eval-mode conv epilogue (csrc/ae_epilogue.cu)
+# ---------------------------------------------------------------------------
+
+def _same_bits(a, b):
+    """Equal bit for bit, NaN payloads aside (a NaN must stay a NaN)."""
+    assert a.shape == b.shape and a.dtype == b.dtype
+    a, b = a.contiguous(), b.contiguous()
+    nan = torch.isnan(a)
+    assert torch.equal(nan, torch.isnan(b))
+    bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(a.view(bits)[~nan], b.view(bits)[~nan])
+
+
+@pytest.mark.parametrize('layout', ['packed', 'crop'])
+@pytest.mark.parametrize('nres', [0, 1, 2])
+@pytest.mark.parametrize('act', [True, False])
+@pytest.mark.parametrize('c', [3, 33, 64, 128])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_ae_epilogue_matches_plain(cuda_device, dtype, c, act, nres, layout):
+    """The kernel against the eager chain on the same conv output, bit for
+    bit: a packed channels-last y or a transposed conv's TF-SAME crop view
+    (read through its strides), 0-2 residuals, NaN, +-inf and -0.0 among y,
+    the residuals and a channel whose BatchNorm maps -0.0 to -0.0."""
+    from imgcomp_cvpr_tpu_torch.ops.kernels import ae_epilogue as epi
+    g = torch.Generator().manual_seed(1000 * c + 10 * nres + act)
+    n, h, w = 2, 5, 7
+    cl = torch.channels_last
+    full = (torch.randn(n, c, h + 3, w + 4, generator=g) * 3).to(cuda_device, dtype)
+    full = full.contiguous(memory_format=cl)
+    y = full[:, :, 1:1 + h, 2:2 + w] if layout == 'crop' else \
+        full[:, :, :h, :w].contiguous(memory_format=cl)
+    k = c // 2
+    specials = [((0, c - 1, 1, 2), float('nan')), ((1, 0, 0, 0), float('inf')),
+                ((1, k, h - 1, w - 1), float('-inf')), ((0, k, 2, 3), -0.0)]
+    for idx, v in specials:
+        y[idx] = v
+    mean, scale, bias = (torch.randn(c, generator=g) for _ in range(3))
+    var = torch.rand(c, generator=g) * 2
+    mean[k], bias[k] = 0.0, -0.0
+    mean, bias = mean.to(cuda_device), bias.to(cuda_device)
+    mul = torch.rsqrt(var.to(cuda_device) + 1e-5) * scale.abs().to(cuda_device)
+    rs = [torch.randn(n, c, h, w, generator=g).to(cuda_device, dtype).contiguous(memory_format=cl)
+          for _ in range(nres)]
+    for i, r in enumerate(rs):
+        r[1, c - 1 - i, 3, 4] = float('nan')
+        r[0, i, 0, 1] = float('-inf')
+    before = build.LAUNCHES['ae_epilogue']
+    out = epi.epilogue(y, mean, mul, bias, act, rs)
+    assert build.LAUNCHES['ae_epilogue'] == before + 1
+    assert out.is_contiguous(memory_format=cl) and out.dtype == dtype
+    plain = epi.epilogue_plain(y, mean, mul, bias, act, rs)
+    torch.cuda.synchronize()
+    _same_bits(out, plain)
+    assert torch.isnan(out[0, c - 1, 1, 2])
+
+
+def test_ae_epilogue_refuses_autograd_and_bad_operands(cuda_device):
+    from imgcomp_cvpr_tpu_torch.ops.kernels import ae_epilogue as epi
+    y = torch.randn(1, 8, 3, 3, device=cuda_device).contiguous(memory_format=torch.channels_last)
+    ones = torch.ones(8, device=cuda_device)
+    with pytest.raises(RuntimeError, match='grad'):
+        epi.epilogue(y.requires_grad_(), ones, ones, ones, True)
+    with pytest.raises(ValueError, match='float32'):
+        epi.epilogue(y.detach().half(), ones, ones, ones, True)
+    with pytest.raises(ValueError, match='residual'):
+        epi.epilogue(y.detach(), ones, ones, ones, True, [y.detach().bfloat16()])
+
+
+@pytest.mark.parametrize('dtype,batch', [(torch.bfloat16, 16), (torch.bfloat16, 1),
+                                         (torch.float32, 1)])
+def test_ae_fused_eval_against_eager(cuda_device, monkeypatch, dtype, batch):
+    """The trained AE on natkodak24 images (512x768): the fused eval path
+    (channels-last, implicit pads, one epilogue launch a conv, 35 an encode
+    and 35 a decode) equals the same convolutions followed by the plain
+    chain bit for bit, and stays within the benchmark judge's limits of the
+    eager towers as they were (NCHW, padded copies, separate ops): symbols
+    differ on at most 0.5% of an image, and the decode of the same symbols
+    within 0.35 RMS pixel levels an image."""
+    import glob
+    import os
+    from PIL import Image
+    from imgcomp_cvpr_tpu_torch import weights as weights_lib
+    from imgcomp_cvpr_tpu_torch.models import autoencoder as ael
+    from imgcomp_cvpr_tpu_torch.ops.kernels import ae_epilogue as epi
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ae_cfg, _ = config_lib.parse_spec('cvpr/low', 'ae')
+    pc_cfg, _ = config_lib.parse_spec('cvpr/res_shallow', 'pc')
+    ae = ael.CVPRAutoencoder(ae_cfg, device=cuda_device, dtype=dtype)
+    pc = pcl.ProbClassifier(pc_cfg, ae_cfg.num_centers, device=cuda_device)
+    weights_lib.load_trained(os.path.join(root, 'assets', 'demo_trained_low_9000.npz'),
+                             ae, pc, device=cuda_device)
+    paths = sorted(glob.glob(os.path.join(root, 'work_rd', 'natkodak24', '*.png')))[:batch]
+    x = torch.from_numpy(np.stack([np.asarray(Image.open(p).convert('RGB')) for p in paths]))
+    x = x.to(cuda_device, torch.float32)
+    before = build.LAUNCHES['ae_epilogue']
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True):
+        enc = ae.encode(x)
+        out = ae.decode(enc.qhard)
+        assert build.LAUNCHES['ae_epilogue'] == before + 70
+        monkeypatch.setattr(epi, 'epilogue', epi.epilogue_plain)
+        enc_p = ae.encode(x)
+        out_p = ae.decode(enc.qhard)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES['ae_epilogue'] == before + 70
+    _same_bits(enc.z, enc_p.z)
+    assert torch.equal(enc.symbols, enc_p.symbols)
+    _same_bits(out, out_p)
+    with torch.no_grad():
+        z_eager = ae_eager.encode_z(ae.encoder, x, False)
+        out_eager = ae_eager.decode(ae.decoder, enc.qhard, False)
+    sym_eager = quantizer_lib.quantize(z_eager, ae.encoder.centers.detach(), sigma=1.0).symbols
+    mism = (sym_eager != enc.symbols).float().mean((1, 2, 3))
+    rms = torch.sqrt(torch.mean((out - out_eager) ** 2, (1, 2, 3)))
+    print(f'{dtype} B={batch}: symbol mismatch max {float(mism.max()):.6f}, '
+          f'decode rms max {float(rms.max()):.6f}')
+    assert float(mism.max()) <= 0.005 and float(rms.max()) <= 0.35

@@ -1,6 +1,8 @@
 """Port vs JAX package: autoencoder with the trained weights, context model
-logits / bitcost, and the weight mapping (CPU)."""
+logits / bitcost, and the weight mapping (CPU); the eval-mode conv epilogue
+on the CPU against the eager towers it replaced."""
 
+import copy
 import os
 
 import jax
@@ -9,12 +11,14 @@ import numpy as np
 import pytest
 import torch
 
+import ae_eager
 from imgcomp_cvpr_tpu.models import autoencoder as jae
 from imgcomp_cvpr_tpu.models import probclass as jpc
 from imgcomp_cvpr_tpu.utils import config as jconfig
 from imgcomp_cvpr_tpu_torch import weights as tweights
 from imgcomp_cvpr_tpu_torch.models import autoencoder as tae
 from imgcomp_cvpr_tpu_torch.models import probclass as tpc
+from imgcomp_cvpr_tpu_torch.ops.kernels import ae_epilogue, build
 from imgcomp_cvpr_tpu_torch.utils import config as tconfig
 
 ASSET = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -163,3 +167,76 @@ def test_heatmap_and_normalize_match_jax():
     np.testing.assert_allclose(tae.normalize(torch.from_numpy(x), 'FIXED').numpy(),
                                np.asarray(jae.normalize(jnp.asarray(x), 'FIXED')),
                                rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The eval-mode epilogue on the CPU, against the eager towers (ae_eager.py)
+# ---------------------------------------------------------------------------
+
+def _reloaded(ae, sd):
+    fresh = tae.CVPRAutoencoder(ae.config, device='cpu', dtype=ae.encoder.h1.dtype)
+    fresh.load_state_dict(sd, strict=True)
+    return fresh
+
+
+@pytest.mark.parametrize('case', ['eval_f32_unchanged', 'eval_bf16_unchanged',
+                                  'train_bypasses_epilogue', 'refold_after_load_state_dict',
+                                  'refold_after_bn_update', 'launch_counter'])
+def test_ae_eval_epilogue_on_cpu(trained, monkeypatch, case):
+    """Eval on the CPU runs the plain chain (the towers' outputs equal the
+    eager towers' bit for bit, 35 epilogues an encode and 35 a decode, no
+    kernel launch); train mode never reaches the epilogue and computes what
+    the eager towers do; the folded operands follow load_state_dict and an
+    in-place running-statistics update."""
+    _, ae32, _ = trained
+    x = torch.from_numpy(_images())
+    calls = []
+    real = ae_epilogue.epilogue
+
+    def spy(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(ae_epilogue, 'epilogue', spy)
+    before = build.LAUNCHES['ae_epilogue']
+    if case in ('eval_f32_unchanged', 'eval_bf16_unchanged'):
+        ae = ae32
+        if case == 'eval_bf16_unchanged':
+            ae = tae.CVPRAutoencoder(ae32.config, device='cpu', dtype=torch.bfloat16)
+            ae.load_state_dict(ae32.state_dict(), strict=True)
+        enc = ae.encode(x)
+        assert len(calls) == 35
+        with torch.no_grad():
+            assert torch.equal(enc.z, ae_eager.encode_z(ae.encoder, x, False))
+            assert torch.equal(ae.decode(enc.qhard), ae_eager.decode(ae.decoder, enc.qhard, False))
+        assert len(calls) == 70
+    elif case == 'train_bypasses_epilogue':
+        ae, eager = copy.deepcopy(ae32), copy.deepcopy(ae32)
+        monkeypatch.setattr(ae_epilogue, 'epilogue', None)   # a call would raise
+        enc, x_out = ae(x, True)
+        assert torch.equal(enc.z, ae_eager.encode_z(eager.encoder, x, True))
+        assert torch.equal(x_out, ae_eager.decode(eager.decoder, enc.qbar, True))
+        for (k, a), b in zip(ae.state_dict().items(), eager.state_dict().values()):
+            assert torch.equal(a, b), k
+    elif case == 'refold_after_load_state_dict':
+        ae = copy.deepcopy(ae32)
+        z0 = ae.encode(x).z
+        sd = {k: v * 1.01 if k.endswith(('bn_mean', 'bn_bias', 'weight')) else v
+              for k, v in ae.state_dict().items()}
+        ae.load_state_dict(sd, strict=True)
+        z1 = ae.encode(x).z
+        assert not torch.equal(z0, z1)
+        assert torch.equal(z1, _reloaded(ae, sd).encode(x).z)
+    elif case == 'refold_after_bn_update':
+        ae = copy.deepcopy(ae32)
+        z0 = ae.encode(x).z
+        with torch.no_grad():
+            ae(x * 0.5, True)        # moves every running mean and variance in place
+        z1 = ae.encode(x).z
+        assert not torch.equal(z0, z1)
+        assert torch.equal(z1, _reloaded(ae, ae.state_dict()).encode(x).z)
+    else:
+        assert 'ae_epilogue' in build.SOURCES and 'ae_epilogue' in build.LAUNCHES
+        ae32.decode(ae32.encode(x).qhard)
+        assert len(calls) == 70
+    assert build.LAUNCHES['ae_epilogue'] == before
