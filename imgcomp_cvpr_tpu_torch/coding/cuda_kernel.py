@@ -779,6 +779,8 @@ def wavefront_forward(mode: int, weights: FoldedWeights,
     build.LAUNCHES[launch_name('wavefront_forward_encode' if parallel else
                                'wavefront_forward_encode_scan' if mode == MODE_ENCODE
                                else 'wavefront_forward_decode', pid)] += 1
+    if weights_in_device(kf, L, sched.CQ, sched.T, parallel, force, pid):
+        build.LAUNCHES['wavefront_wdev'] += 1
     build.check(err, 'wavefront_forward')
     return (fsel, ssel) if mode == MODE_ENCODE else syms
 
@@ -797,6 +799,7 @@ def max_active_clusters(kf: int, L: int, CQ: int, T: int, cluster: int, prec: in
     return out
 
 
+@functools.lru_cache(maxsize=64)
 def weights_in_device(kf: int, L: int, CQ: int, T: int, encode: bool = False,
                       force: int = 0, prec=0) -> bool:
     """Whether kernel 2's scan (or, with ``encode``, its layer-parallel

@@ -17,7 +17,10 @@ not a kernel wrapper: ``bias_row_conv`` counts the planar codec's bias-row
 ``ae_epilogue`` counts the autoencoder's fused eval-mode conv epilogue
 (``csrc/ae_epilogue.cu``, ``ops/kernels/ae_epilogue.py``): one a convolution
 on the card, 70 a round trip of the CVPR towers (35 encode, 35 decode), 0
-in training.
+in training. ``wavefront_wdev`` counts the calls of kernel 2's wrapper
+(``coding/cuda_kernel.wavefront_forward``) whose instance reads the weights
+from device memory (``weights_in_device``: kf = 64 at L = 6, or ``force``),
+beside their own counter: 0 at kf = 24, every kernel-2 call at kf = 64.
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ LAUNCHES: Dict[str, int] = {
     'plane_reverse': 0,
     'bias_row_conv': 0,
     'ae_epilogue': 0,
+    'wavefront_wdev': 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -229,6 +229,26 @@ def test_k3_kf64_encode_equals_scan_plain_and_roundtrips(cuda_device, shape):
     assert build.LAUNCHES['wavefront_forward_decode'] == 1
 
 
+@pytest.mark.parametrize('kf', [24, 64])
+def test_wdev_counter_counts_device_memory_launches(cuda_device, kf):
+    """LAUNCHES['wavefront_wdev'] counts every kernel-2 call of a kf = 64
+    round trip through the codec (its weights in device memory) and none of
+    a kf = 24 one (its weights in shared memory)."""
+    shape = (6, 10, 12)
+    pc, cfg = _pc64(cuda_device, seed=14) if kf == 64 else _pc(cuda_device, kf=24, seed=14)
+    centers = torch.linspace(-2, 2, 6, device=cuda_device)
+    syms = torch.from_numpy(np.random.RandomState(14).randint(0, 6, (2,) + shape))
+    syms = syms.int().to(cuda_device)
+    lc = codec.LatentCodec(pc, cfg, device=cuda_device)
+    build.reset_launches()
+    res = lc.encode_batch(syms, centers)
+    dec = lc.decode_batch([r.bitstream for r in res], centers, verify=True)
+    assert torch.equal(dec.reshape(syms.shape), syms)
+    k2 = sum(v for k, v in build.LAUNCHES.items() if k.startswith('wavefront_forward'))
+    assert k2 == 2
+    assert build.LAUNCHES['wavefront_wdev'] == (k2 if kf == 64 else 0)
+
+
 @pytest.mark.parametrize('force', [1, 2, 3])
 def test_k3_weight_placement_keeps_the_bits(cuda_device, force):
     """kf = 24 (weights in shared memory by default): the weights read from
