@@ -28,6 +28,11 @@ Phases, one line each:
      teacher-forced scan on all 32 planes, its scan against the scan's
      plain version on one plane (plane 2, whose bias rows come from two
      coded planes: that Python loop over 824 steps takes ~20 s a plane).
+     The bias-row kernel (csrc/bias_rows.cu) on the activations of that
+     encode: its encode layout (4 launches) and decode layout (32) equal
+     bit for bit, B = 1 equal to B = 16, the generic instance equal to the
+     compile-time one, the kernel within 2e-5 of its plain version, timed
+     beside its bound (also alone: ``--bias-rows-only``).
      Kernel 2's layer-parallel encode likewise equals its scan on every
      entry; decode is timed with the image over clusters of 8 and of 1
      blocks; both codecs decode B = 1, 3 and 17 images and write the same
@@ -742,7 +747,7 @@ def planar_kernels(dev, syms, centers, pc5, pc5_config, rows, sm_mhz):
     print(f'[3 plane forward encode] K=5 latent {shape}: layer-parallel encode of all {C} '
           f'planes in {n_par} kernel-5 launches, ms {[round(t, 3) for t in par_ms]} (levels '
           f'1-4, tables) = {sum(par_ms):.3f} of the {all_ms:.1f} ms encode_tables takes with '
-          f'its {4 * C * B} bias-row convolutions; tables equal to the teacher-forced '
+          f'its 4 bias-row launches; tables equal to the teacher-forced '
           f'scan\'s on all {C} planes ({fsel_par.numel()} entries); vs the plain '
           f'layer-at-a-time version on all planes ({enc_plain_ms / 1e3:.1f} s): {flips_all} '
           f'flips of {entries * C} active entries (tol 0.1%); the scan ({scan_enc_ms:.3f} ms '
@@ -819,6 +824,181 @@ def planar_kernels(dev, syms, centers, pc5, pc5_config, rows, sm_mhz):
           f'chain floor {chain_floor_ms(adds, sched.T2, sm_mhz):.3f} ms a launch ({adds} '
           f'dependent adds a step x {sched.T2} steps x {FADD_LATENCY_CLOCKS} clocks at '
           f'{sm_mhz} MHz)', flush=True)
+
+
+def bias_rows_volume(coder, fold, syms):
+    """The activations the layer-parallel encode computes for ``syms`` (B,
+    C, H, W), level by level as PlanarCoder.encode_tables does: per level
+    0..3 the (B*C, H_l, W_l[, kf]) input of the next level's bias rows."""
+    import torch
+    from imgcomp_cvpr_tpu_torch.coding import bias_rows as br, planar
+    from imgcomp_cvpr_tpu_torch.coding import planar_kernel as plk
+    b, C, H, W = syms.shape
+    shape = (C, H, W)
+    sched = planar.build_planar_schedule(shape, coder.K)
+    reach = planar.geometry(coder.K)[1]
+    q = torch.full((b, C) + sched.grids[0], fold.pad, dtype=torch.float32, device=syms.device)
+    q[:, :, reach:reach + H, reach:reach + W] = fold.top.centers[syms.long()]
+    vol = [q.reshape((b * C,) + sched.grids[0])]
+    for level in range(1, 4):
+        vol.append(plk.level_forward(level, fold.top, shape, coder.K, vol[-1],
+                                     br.level_rows(fold, level, vol[-1], C),
+                                     skip=vol[1] if level == 3 else None))
+    return vol
+
+
+def bias_rows_layouts(fold, K, vol, b, C, plain=False):
+    """The bias rows of every plane in both layouts: the encode's (one call a
+    level over all b x C pairs) and the decode's (one call a plane for the
+    four levels, the history pushed from ``vol``), each per level (b, C,
+    H_l, W_l, cout); with their ms (CUDA events around all the calls of a
+    layout)."""
+    import torch
+    from imgcomp_cvpr_tpu_torch.coding import bias_rows as br
+    level_fn = br.level_rows_plain if plain else br.level_rows
+    plane_fn = br.plane_rows_plain if plain else br.plane_rows
+    grids = tuple(v.shape[1:3] for v in vol)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    enc = [level_fn(fold, level, vol[level - 1], C) for level in range(1, 5)]
+    ev[1].record()
+    per_image = [v.reshape((b, C) + v.shape[1:]) for v in vol]
+    hist = br.history(b, grids, K // 2 + 1)
+    dec = [[] for _ in range(4)]
+    ev[2].record()
+    for d in range(C):
+        for level, r in enumerate(plane_fn(fold, hist)):
+            dec[level].append(r)
+        planes = [v[:, d].contiguous() for v in per_image]
+        br.push(hist, planes[0], planes[1:])
+    ev[3].record()
+    torch.cuda.synchronize()
+    enc = [e.reshape((b, C) + e.shape[1:]) for e in enc]
+    return enc, [torch.stack(r, 1) for r in dec], ev[0].elapsed_time(ev[1]), \
+        ev[2].elapsed_time(ev[3])
+
+
+def bias_rows_kernel(dev, syms, centers, pc5, pc5_config, rows):
+    """The bias-row kernel (csrc/bias_rows.cu) at the main path's shapes (B
+    = 16, latent (32, 64, 96), K = 5 seeded pc base) on the activations
+    the layer-parallel encode computes for phase 3's symbols: both layouts
+    (the encode's 4 launches, the decode's 32) held to each other bit for
+    bit, a B = 1 run of image 3 in both layouts to B = 16's rows of that
+    image bit for bit, the kernel to its plain version (one cuDNN F.conv2d a
+    (image, plane), TF32 off: the parent's path, so also the yardstick
+    `library_ms`) within 2e-5 of max(1, |row|) (the sums of up to 1200
+    float32 products in two orders), and the generic instance to the
+    compile-time one bit for bit on the encode layout. Times each layout
+    (kernel: mean of 3 runs) beside the bound, f32 operations at 67 TFLOP/s
+    (or bytes, each activation read once and each row written once, at
+    3.35 TB/s, were they more), and a batched cuDNN F.conv2d a level over
+    all pairs (one call, not batch-invariant). Adds rows['bias_rows']."""
+    import torch
+    from imgcomp_cvpr_tpu_torch.coding import bias_rows as br, cuda_kernel as ck, planar_codec
+    import torch.nn.functional as F
+    syms = syms.int().contiguous()
+    B, C = syms.shape[:2]
+    coder = planar_codec.PlanarCoder(pc5, pc5_config, device=dev)
+    K = coder.K
+    _, fold = coder._prepare(tuple(syms.shape[1:]), centers)
+    vol = bias_rows_volume(coder, fold, syms)
+    enc, dec, _, _ = bias_rows_layouts(fold, K, vol, B, C)
+    for level in range(4):
+        if not torch.equal(enc[level], dec[level]):
+            raise AssertionError(f'bias rows: level {level + 1} differs between the encode '
+                                 f'and the decode layouts')
+    one = [v.reshape((B, C) + v.shape[1:])[3].contiguous() for v in vol]
+    enc1, dec1, _, _ = bias_rows_layouts(fold, K, one, 1, C)
+    for level in range(4):
+        if not (torch.equal(enc1[level][0], enc[level][3])
+                and torch.equal(dec1[level][0], enc[level][3])):
+            raise AssertionError(f'bias rows: level {level + 1} of image 3 differs between B = '
+                                 f'1 and B = {B}')
+    gen = [br.level_rows(fold, level, vol[level - 1], C, force=ck.FORCE_GENERIC)
+           for level in range(1, 5)]
+    if not all(torch.equal(g.reshape(e.shape), e) for g, e in zip(gen, enc)):
+        raise AssertionError('bias rows: the generic instance differs from the compile-time one')
+    runs = [bias_rows_layouts(fold, K, vol, B, C)[2:] for _ in range(3)]
+    enc_ms, dec_ms = (sum(r[i] for r in runs) / len(runs) for i in range(2))
+    enc_p, dec_p, enc_plain_ms, dec_plain_ms = bias_rows_layouts(fold, K, vol, B, C, plain=True)
+    err = max((k - p).abs().max().item() for k, p in zip(enc + dec, enc_p + dec_p))
+    scale = max(1.0, max(p.abs().max().item() for p in enc_p))
+    if err > 2e-5 * scale:
+        raise AssertionError(f'bias rows: kernel vs plain max abs err {err:.3g} > 2e-5 x {scale:.3g}')
+    flops = nbytes = 0
+    for level in range(1, 5):
+        kd1, Kk, cin, cout = br._widths(fold, level)
+        (hs, ws), (hl, wl) = vol[level - 1].shape[1:3], enc[level - 1].shape[2:4]
+        flops += 2 * B * C * hl * wl * kd1 * Kk * Kk * cin * cout
+        nbytes += 4 * B * C * (hs * ws * cin + hl * wl * cout)
+
+    conv_w = [br.conv_weight(fold, level) for level in range(1, 5)]
+
+    def batched():          # one cuDNN call a level over all (image, plane) pairs
+        for level in range(1, 5):
+            kd1, _, cin, _ = br._widths(fold, level)
+            x = vol[level - 1]
+            x = (x[:, None] if x.dim() == 3 else x.permute(0, 3, 1, 2)).reshape(B, C, cin,
+                                                                               *x.shape[1:3])
+            k = br._const(fold, level)[None, None, :, None, None].expand(B, kd1, cin,
+                                                                        *x.shape[3:])
+            x = torch.cat([k, x], 1)
+            x = torch.stack([x[:, d:d + kd1] for d in range(C)], 1).reshape(
+                B * C, kd1 * cin, *x.shape[3:])
+            F.conv2d(x, conv_w[level - 1], fold.bias[level - 1])
+    lib_ms = cuda_ms(batched, 2)
+    b_ms, b_by = bound(nbytes, flops)
+    rows['bias_rows'] = dict(
+        route='cuda', source='imgcomp_cvpr_tpu_torch/csrc/bias_rows.cu',
+        replaces='none (conv_lower, left to XLA: imgcomp_cvpr_tpu/coding/planar_codec.py:260)',
+        max_abs_err=err, ms=enc_ms + dec_ms, plain_ms=enc_plain_ms + dec_plain_ms,
+        bound=(2 * b_ms, b_by), library_ms=2 * lib_ms, encode_ms=enc_ms, decode_ms=dec_ms,
+        encode_plain_ms=enc_plain_ms, decode_plain_ms=dec_plain_ms)
+    print(f'[3 bias rows] K={K} B={B} latent {tuple(syms.shape[1:])}: the encode layout (4 '
+          f'launches) {enc_ms:.3f} ms, the decode layout ({C} launches) {dec_ms:.3f} ms, '
+          f'round trip {enc_ms + dec_ms:.3f} ms against a bound of {2 * b_ms:.3f} ms '
+          f'({b_by}: {2 * flops / 1e9:.1f} GFLOP at 67 TFLOP/s, '
+          f'{100 * 2 * b_ms / (enc_ms + dec_ms):.1f}% of the rate); plain (one F.conv2d a '
+          f'(image, plane), the parent\'s path) {enc_plain_ms:.3f} + {dec_plain_ms:.3f} ms; one '
+          f'batched F.conv2d a level {lib_ms:.3f} ms a layout; layouts equal bit for bit, B = 1 '
+          f'equal to B = {B} bit for bit, the generic instance equal to the compile-time one; '
+          f'vs plain max abs err {err:.3g} (rows up to {scale:.3g}; tol 2e-5 of that)',
+          flush=True)
+
+
+def bias_rows_only():
+    """`--bias-rows-only`: phase 3's bias-row check and times alone, on the
+    trained AE's symbols of phase 3's images; prints its line and a JSON
+    line."""
+    import torch
+    from imgcomp_cvpr_tpu_torch import weights as weights_lib
+    from imgcomp_cvpr_tpu_torch.models import autoencoder as ae_lib
+    from imgcomp_cvpr_tpu_torch.models import probclass as pc_lib
+    from imgcomp_cvpr_tpu_torch.ops.kernels import build
+    from imgcomp_cvpr_tpu_torch.utils import config as config_lib
+    dev = torch.device('cuda')
+    logs = build.build_all()
+    if logs.get('bias_rows'):
+        print('[bias rows build] ' + ' | '.join(
+            f'{fn} {regs}' for fn, regs in ptxas_kernels(logs['bias_rows']).items()), flush=True)
+    ae_config, _ = config_lib.parse_spec('cvpr/low', 'ae')
+    pc_config, _ = config_lib.parse_spec('cvpr/res_shallow', 'pc')
+    ae = ae_lib.CVPRAutoencoder(ae_config, device=dev)
+    pc = pc_lib.ProbClassifier(pc_config, ae_config.num_centers, device=dev)
+    ae, pc = weights_lib.load_trained(ASSET, ae, pc, device=dev)
+    x = torch.from_numpy(natural_images(np.random.RandomState(0), BATCH, IMG_H, IMG_W)).to(dev)
+    with torch.no_grad():
+        syms = ae.encode(x).symbols.permute(0, 3, 1, 2).contiguous()
+    pc5_config, _ = config_lib.parse_spec('base', 'pc')
+    pc5 = pc_lib.init_params(pc_lib.ProbClassifier(pc5_config, ae_config.num_centers,
+                                                   device=dev), seed=0)
+    rows = {}
+    bias_rows_kernel(dev, syms, ae.encoder.centers.detach(), pc5, pc5_config, rows)
+    r = rows['bias_rows']
+    r['bound_ms'], r['bound_by'] = r.pop('bound')
+    print(json.dumps({'device': torch.cuda.get_device_name(0), 'bias_rows': r}), flush=True)
+    return 0
 
 
 def quantize_bwd_kernel(dev, trained_centers, rows):
@@ -2399,7 +2579,7 @@ def wide_context_models(dev, ae, ae_config, x, centers, fw24):
           f'{[round(t, 3) for t in par5_ms]} = {sum(par5_ms):.3f} ms; tables equal to the '
           f'plane-by-plane scan\'s on all {fk5.numel()} entries; kernel 5\'s scan '
           f'{plane_ms:.3f} ms a plane ({scan_ms:.1f} ms over {C} planes in mode 1 with the '
-          f'bias-row convolutions)', flush=True)
+          f'bias-row launches)', flush=True)
     return launches
 
 
@@ -2577,12 +2757,15 @@ def k3_flops(sched, fw, B):
 # prec 0, 1 and 2 ($IMGCOMP_PALLAS_PREC), and 5 and 6 (cuda_planar, K=5) at
 # prec 0. The prec-0 digests date from before the bf16 / f8 instances, the
 # prec-1 and prec-2 ones from before their operands were stored at their own
-# precision; neither change was to move a byte.
+# precision; neither change was to move a byte. The cuda_planar digest dates
+# from the bias-row kernel (csrc/bias_rows.cu), whose fixed float32 sum order
+# replaced cuDNN's and moved the id-6 bytes (before it:
+# 2e1de80d34049fb433d94689d77d6de79351492fcc598e72dad30ab45726c530).
 AB_DIGESTS = {
     ('cuda', 'f32'): 'd2a2e7e149d8cf0748cabe87c500d333ec18494cf7e8c024e97d17fc9b0a3078',
     ('cuda', 'bf16'): '49fad3265bc642c8daee63ed65d9117f23af32d4eddd8a0474ecaa9630e55051',
     ('cuda', 'f8'): '6f4be8a2c6a72407c578d2e19be4d3c2d9ee5ee3f7f9bab950b6bc5705f0eb2e',
-    ('cuda_planar', 'f32'): '2e1de80d34049fb433d94689d77d6de79351492fcc598e72dad30ab45726c530'}
+    ('cuda_planar', 'f32'): 'c222ce792a533f591d6649116e4590f0942909f930b0aadc94e68b6f07be91ca'}
 
 
 def operand_bytes(sched, B, kf, L, prec, decode, n_words=0):
@@ -3025,6 +3208,8 @@ def main(argv):
         return quantizer_only(root)
     if '--kernel2-only' in argv:
         return kernel2_only(root, '--profile' in argv)
+    if '--bias-rows-only' in argv:
+        return bias_rows_only()
     from imgcomp_cvpr_tpu_torch import weights as weights_lib
     from imgcomp_cvpr_tpu_torch.coding import codec as codec_lib
     from imgcomp_cvpr_tpu_torch.coding import cuda_codec, cuda_kernel as ck
@@ -3209,6 +3394,7 @@ def main(argv):
                                                    device=dev), seed=0)
     lc5 = codec_lib.LatentCodec(pc5, pc5_config, device=dev)
     planar_kernels(dev, syms, centers, pc5, pc5_config, rows, sm_mhz)
+    bias_rows_kernel(dev, syms, centers, pc5, pc5_config, rows)
 
     # ---- phase 3b: any batch size, and streams that do not depend on it ----
     syms17 = torch.cat([syms, syms[:1]])
@@ -3273,7 +3459,7 @@ def main(argv):
                         (4, 'wavefront_forward_encode'),
                         (4, 'wavefront_forward_decode'), (4, 'rans_reverse'),
                         (5, 'plane_forward_encode'), (5, 'plane_forward_decode'),
-                        (5, 'plane_reverse'), ('4d', 'ae_epilogue')):
+                        (5, 'plane_reverse'), (5, 'bias_rows'), ('4d', 'ae_epilogue')):
         # quantize_train is kernel 1 again: the wrapper's one counter, as
         # the training phase read it.
         n_launch = launches[phase]['quantize' if name == 'quantize_train' else name]
@@ -3281,6 +3467,9 @@ def main(argv):
             raise AssertionError(f'kernel {name} was not launched on main path {phase}')
         if name == 'plane_forward_encode' and n_launch > 5:
             raise AssertionError(f'kernel 5 encode took {n_launch} launches a batch')
+        if name == 'bias_rows' and n_launch != 4 + shape[0]:
+            raise AssertionError(f'bias rows: {n_launch} launches a K=5 round trip, not '
+                                 f'4 + {shape[0]}')
         if name == 'ae_epilogue' and (launches[4][name], launches[5][name],
                                       launches[9]['train'][name]) != (70, 70, 0):
             raise AssertionError(f'ae_epilogue: {launches[4][name]} and {launches[5][name]} '

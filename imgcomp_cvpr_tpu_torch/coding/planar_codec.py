@@ -22,13 +22,12 @@ plane-by-plane teacher-forced scan as the consistency oracle.
 Submit / finish as in cuda_codec (counterpart planar_codec.py:621-839):
 submit enqueues and returns, finish waits for its batch's event only.
 
-Bias rows are F.conv2d (TF32 off) run one image and one plane at a time, on
-the same (1, (kd-1) * cin, H_l, W_l) input in encode and decode: every float
-that feeds a CDF is then a fixed function of one image's data, whatever the
-batch, so a stream decodes alone exactly as it was encoded in a batch. That
-is 4 B C convolutions a batch each way, counted in
-``build.LAUNCHES['bias_row_conv']``; each block of them (one a level in
-encode, one a plane in decode) is the span ``planar.bias_rows``.
+The bias rows come from coding/bias_rows.py: one launch a level in encode
+(all B x C pairs), one a plane in decode (all four levels of every image),
+each the span ``planar.bias_rows`` and one count of
+``build.LAUNCHES['bias_rows']``. Each row is a fixed chain of sums of one
+image's data, whatever the batch or the launch, so every float that feeds a
+CDF is too, and a stream decodes alone exactly as it was encoded in a batch.
 """
 
 from __future__ import annotations
@@ -38,12 +37,11 @@ from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .. import resolve_device
 from ..models import probclass as pc_lib
-from ..ops.kernels import build
 from ..utils.spans import span
+from . import bias_rows as br
 from . import codec as codec_lib
 from . import cuda_codec
 from . import planar
@@ -52,15 +50,15 @@ from . import planar_kernel as pk
 
 class PlanarFold(NamedTuple):
     top: pk.PlaneWeights                  # kernel 5's top-slice taps
-    low: Tuple[torch.Tensor, ...]         # per layer (cout, (kd-1)*cin, K, K)
+    low: Tuple[torch.Tensor, ...]         # per layer (kd-1, K, K, cin, cout)
     bias: Tuple[torch.Tensor, ...]        # per layer (cout,)
     consts: Tuple[torch.Tensor, ...]      # k1..k3, each (kf,) f32
     pad: float
 
 
 def fold_planar(pc: pc_lib.ProbClassifier, centers: torch.Tensor) -> PlanarFold:
-    """Top-slice taps -> kernel weights; lower slices w[:kd-1] -> one conv
-    weight per layer over the kd-1 planes stacked on channels, oldest first
+    """Top-slice taps -> kernel weights; lower slices w[:kd-1] -> the
+    bias-row kernel's (kd-1, K, K, cin, cout), oldest plane first
     (planar_codec.py:234-258); the all-pad constants in float64."""
     net = pc.net
     K = net.kernel_size
@@ -69,11 +67,9 @@ def fold_planar(pc: pc_lib.ProbClassifier, centers: torch.Tensor) -> PlanarFold:
     tops, lows, bs = [], [], []
     for i, conv in enumerate((net.conv0, net.res1.conv1, net.res1.conv2, net.conv_out)):
         w = conv.weight.detach().float()                 # (cout, cin, kd, K, K)
-        cout, cin = w.shape[:2]
         tops.append(torch.stack([w[:, :, kd - 1, dy, dx].t()
                                  for dy, dx in planar.unmasked_taps(K, i == 0)]).to(dev).contiguous())
-        lows.append(w[:, :, :kd - 1].permute(0, 2, 1, 3, 4)
-                    .reshape(cout, (kd - 1) * cin, K, K).to(dev).contiguous())
+        lows.append(w[:, :, :kd - 1].permute(2, 3, 4, 1, 0).to(dev).contiguous())
         bs.append(conv.bias.detach().float().to(dev).contiguous())
     pad = float(pc_lib.auto_pad_value(pc.config, centers, pc))
     consts = tuple(k.float().to(dev) for k in cuda_codec.pad_constants(pc, pad))
@@ -106,38 +102,20 @@ class PlanarCoder:
 
     # -- the plane loop -------------------------------------------------------
 
-    def _history(self, fold: PlanarFold, sched, b: int):
-        """Per level 0..3, the kd-1 planes below plane 0 (all-pad constants),
-        each (b, ch, Hl, Wl) f32, oldest first."""
-        kd = pc_lib.filter_depth(self.K)
-        dev = fold.top.w1.device
-        hist = [[torch.full((b, 1) + sched.grids[0], fold.pad, device=dev)]]
-        for l in range(1, 4):
-            k = fold.consts[l - 1]
-            hist.append([k[None, :, None, None].expand(
-                (b, k.shape[0]) + sched.grids[l]).contiguous()])
-        return [h * (kd - 1) for h in hist]
+    def _history(self, fold: PlanarFold, sched, b: int) -> br.History:
+        """The kd-1 planes below plane 0 of each level 0..3: all constants."""
+        return br.history(b, sched.grids, pc_lib.filter_depth(self.K))
 
     @staticmethod
-    def bias_rows(fold: PlanarFold, hist) -> Tuple[torch.Tensor, ...]:
-        """The plane's 4 bias rows (b, Hl, Wl, cout): sum_j conv2d(act_{l-1}
-        [d-kd+1+j], w_l[j]) + b_l, one image per conv call."""
-        rows = []
+    def bias_rows(fold: PlanarFold, hist: br.History) -> Tuple[torch.Tensor, ...]:
+        """The next plane's 4 bias rows (b, Hl, Wl, cout): sum_j
+        conv2d(act_{l-1}[d-kd+1+j], w_l[j]) + b_l, in one call."""
         with span('planar.bias_rows'):
-            for l in range(4):
-                x = torch.cat(hist[l], 1)
-                y = torch.cat([F.conv2d(x[i:i + 1], fold.low[l], fold.bias[l])
-                               for i in range(x.shape[0])])
-                rows.append(y.permute(0, 2, 3, 1).contiguous())
-        build.LAUNCHES['bias_row_conv'] += 4 * x.shape[0]
-        return tuple(rows)
+            return br.plane_rows(fold, hist)
 
     @staticmethod
-    def _push(hist, out: pk.PlaneOut) -> None:
-        new = [out.q[:, None]] + [a.permute(0, 3, 1, 2).contiguous() for a in out.acts]
-        for h, n in zip(hist, new):
-            h.pop(0)
-            h.append(n)
+    def _push(hist: br.History, out: pk.PlaneOut) -> None:
+        br.push(hist, out.q, out.acts)
 
     # -- encode ---------------------------------------------------------------
 
@@ -146,42 +124,27 @@ class PlanarCoder:
         """(B, C, H, W) int32 symbols -> (fsel, ssel) (B, C*T2, R) int32 in
         (plane, step) coding order, through kernel 5's layer-parallel encode:
         per level the bias rows of all planes, then one launch. ``plain``
-        runs the kernel's plain version instead, whatever the device.
+        runs kernel 5's plain versions instead, whatever the device (the
+        bias rows stay those of the wrapper, so the two share them).
         ``return_logits`` also returns level 4's (B*C, H, W, L) logits."""
         level = pk.level_forward_plain if plain else pk.level_forward
         b, C, H, W = syms.shape
         latent_shape = (C, H, W)
         sched = planar.build_planar_schedule(latent_shape, self.K)
-        kd, reach = planar.geometry(self.K)[:2]
-        dev = syms.device
-        q = torch.full((b, C) + sched.grids[0], fold.pad, dtype=torch.float32, device=dev)
+        reach = planar.geometry(self.K)[1]
+        q = torch.full((b, C) + sched.grids[0], fold.pad, dtype=torch.float32,
+                       device=syms.device)
         q[:, :, reach:reach + H, reach:reach + W] = fold.top.centers[syms.long()]
-        src = q.reshape((b * C,) + sched.grids[0])        # the kernel's input
-        below = q[:, :, None]                             # (b, C, ch, Hs, Ws)
-        consts = (torch.full((1,), fold.pad, device=dev),) + fold.consts
+        src = q.reshape((b * C,) + sched.grids[0])        # the kernels' input
         act1 = None
         for l in range(4):
-            # Planes d-kd+1 .. d-1 of the level below, the all-pad constants
-            # first: plane d's conv input is a contiguous slice, the same
-            # (1, (kd-1)*ch, Hs, Ws) tensor that decode's bias_rows builds.
-            ch, gs = below.shape[2], sched.grids[l]
             with span('planar.bias_rows'):
-                hist = consts[l][None, None, :, None, None].expand(b, kd - 1, ch, *gs)
-                vol = torch.cat([hist, below], 1)
-                rows = torch.stack([
-                    torch.cat([F.conv2d(vol[i, d:d + kd - 1].reshape(1, (kd - 1) * ch, *gs),
-                                        fold.low[l], fold.bias[l]) for i in range(b)])
-                    for d in range(C)], 1)                # (b, C, cout, Hl, Wl)
-                bias = rows.permute(0, 1, 3, 4, 2).reshape(
-                    (b * C,) + sched.grids[l + 1] + (-1,))
-            build.LAUNCHES['bias_row_conv'] += b * C
-            out = level(l + 1, fold.top, latent_shape, self.K, src,
-                                   bias.contiguous(), skip=act1 if l == 2 else None)
+                bias = br.level_rows(fold, l + 1, src, C)
+            out = level(l + 1, fold.top, latent_shape, self.K, src, bias,
+                        skip=act1 if l == 2 else None)
             if l == 0:
                 act1 = out
             src = out
-            if l < 3:
-                below = out.reshape((b, C) + out.shape[1:]).permute(0, 1, 4, 2, 3).contiguous()
         true = syms.reshape(b * C, H, W).contiguous()
         if plain:
             fsel, ssel = pk.plane_tables_plain(out, true, latent_shape, self.K)

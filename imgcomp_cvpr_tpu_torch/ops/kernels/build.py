@@ -11,10 +11,10 @@ the CPU tests import it and never build.
 
 Launch counters: each wrapper adds one to ``LAUNCHES[name]`` where it
 launches its kernel, and nowhere else (``reset_launches`` zeroes them), so a
-run can show that the main path went through the kernels. One counter is
-not a kernel wrapper: ``bias_row_conv`` counts the planar codec's bias-row
-``F.conv2d`` calls (cuDNN's, 8 B C a batch encoded and decoded).
-``ae_epilogue`` counts the autoencoder's fused eval-mode conv epilogue
+run can show that the main path went through the kernels. ``bias_rows``
+counts the launches of the planar codec's bias-row kernel
+(``csrc/bias_rows.cu``, ``coding/bias_rows.py``): 4 + C a round trip of C
+planes on the card, 0 for K = 3. ``ae_epilogue`` counts the autoencoder's fused eval-mode conv epilogue
 (``csrc/ae_epilogue.cu``, ``ops/kernels/ae_epilogue.py``): one a convolution
 on the card, 70 a round trip of the CVPR towers (35 encode, 35 decode), 0
 in training. ``wavefront_wdev`` counts the calls of kernel 2's wrapper
@@ -40,7 +40,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build', 'torch_kernels')
 SOURCES = ('quantize', 'quantize_bwd', 'wavefront_forward', 'rans_reverse',
-           'plane_forward', 'ae_epilogue')
+           'plane_forward', 'ae_epilogue', 'bias_rows')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
@@ -62,7 +62,7 @@ LAUNCHES: Dict[str, int] = {
     'plane_forward_encode_scan': 0,
     'plane_forward_decode': 0,
     'plane_reverse': 0,
-    'bias_row_conv': 0,
+    'bias_rows': 0,
     'ae_epilogue': 0,
     'wavefront_wdev': 0,
 }

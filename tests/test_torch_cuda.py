@@ -11,6 +11,7 @@ import torch
 
 import ae_eager
 from imgcomp_cvpr_tpu_torch.coding import codec, cuda_codec, cuda_kernel as ck, rans
+from imgcomp_cvpr_tpu_torch.coding import bias_rows as br
 from imgcomp_cvpr_tpu_torch.coding import planar, planar_codec, planar_kernel as plk
 from imgcomp_cvpr_tpu_torch.models import probclass as pcl
 from imgcomp_cvpr_tpu_torch.models import quantizer as quantizer_lib
@@ -501,6 +502,7 @@ def test_planar_roundtrip_through_kernels(cuda_device):
     assert build.LAUNCHES['plane_forward_encode_scan'] == 0
     assert build.LAUNCHES['plane_forward_decode'] == shape[0]
     assert build.LAUNCHES['plane_reverse'] == 1
+    assert build.LAUNCHES['bias_rows'] == 4 + shape[0]
     assert build.LAUNCHES['wavefront_forward_encode'] == 0
     assert all(codec.stream_impl_id(r.bitstream) == codec.IMPL_CUDA_PLANAR for r in res)
     assert all(codec.deserialize_stream(r.bitstream)[4] is not None for r in res)
@@ -558,6 +560,150 @@ def test_planar_decode_any_batch(cuda_device, b):
     res = lc.encode_batch(syms, centers)
     assert torch.equal(lc.decode_batch([r.bitstream for r in res], centers).long(), syms.long())
     assert lc.encode_batch(syms[b - 1:], centers)[0].bitstream == res[b - 1].bitstream
+
+
+# ---------------------------------------------------------------------------
+# The planar bias rows (csrc/bias_rows.cu)
+# ---------------------------------------------------------------------------
+
+BIAS_SHAPE = (3, 12, 20)
+# (K, kf): the compile-time instance (5, 24); the generic one at kf = 64 (the
+# weights streamed through shared memory a (j, dy, dx) slice at a time), kf =
+# 40 (channel groups padded with zero weights), kf = 8, K = 3 and K = 7.
+BIAS_WIDTHS = [(5, 24), (5, 64), (5, 40), (5, 8), (3, 24), (7, 24)]
+
+
+def _bias_case(device, K, kf, b, seed=0):
+    """A seeded planar model's fold (with random biases) and random
+    activations of every level 0..3 of b images x C planes, as the kernels
+    leave them: level 0 (b*C, H0, W0), levels 1-3 (b*C, H, W, kf)."""
+    pc, _ = _planar_pc(device, K=K, kf=kf, seed=seed)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in pc.named_parameters():
+            if name.endswith('bias'):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+    fold = planar_codec.fold_planar(pc, torch.linspace(-2, 2, 6, device=device))
+    grids = planar.grids_2d(BIAS_SHAPE[1:], K)
+    vol = [torch.randn((b * BIAS_SHAPE[0],) + gr + (() if l == 0 else (kf,)), generator=g)
+           .to(device) for l, gr in enumerate(grids[:4])]
+    return fold, vol
+
+
+def _bias_decode(fold, K, vol, b, rows_fn=br.plane_rows, **kw):
+    """The decode layout plane by plane over the volume: per level (b, C,
+    H, W, cout)."""
+    C = BIAS_SHAPE[0]
+    hist = br.history(b, planar.grids_2d(BIAS_SHAPE[1:], K), K // 2 + 1)
+    rows = [[] for _ in range(4)]
+    for d in range(C):
+        for l, r in enumerate(rows_fn(fold, hist, **kw)):
+            rows[l].append(r)
+        planes = [v.reshape((b, C) + v.shape[1:])[:, d].contiguous() for v in vol]
+        br.push(hist, planes[0], planes[1:])
+    return [torch.stack(r, 1) for r in rows]
+
+
+def _bias_encode(fold, vol, b, rows_fn=br.level_rows, **kw):
+    C = BIAS_SHAPE[0]
+    out = [rows_fn(fold, l + 1, vol[l], C, **kw) for l in range(4)]
+    return [o.reshape((b, C) + o.shape[1:]) for o in out]
+
+
+@pytest.mark.parametrize('K,kf', BIAS_WIDTHS)
+def test_bias_rows_kernel_matches_plain(cuda_device, K, kf):
+    """The kernel in both layouts against the plain version (one cuDNN
+    F.conv2d a (image, plane), TF32 off) on the same activations: each row
+    sums 2 x K x K x cin float32 products (up to 3200) in another order, a
+    fixed fmaf chain against cuDNN's, so they agree to a few ulp of the
+    O(1) partial sums: 2e-5 absolute. One launch a call; the plain version
+    launches nothing and counts nothing."""
+    b = 2
+    fold, vol = _bias_case(cuda_device, K, kf, b, seed=K + kf)
+    before = build.LAUNCHES['bias_rows']
+    enc = _bias_encode(fold, vol, b)
+    assert build.LAUNCHES['bias_rows'] == before + 4
+    dec = _bias_decode(fold, K, vol, b)
+    assert build.LAUNCHES['bias_rows'] == before + 4 + BIAS_SHAPE[0]
+    enc_p = _bias_encode(fold, vol, b, br.level_rows_plain)
+    dec_p = _bias_decode(fold, K, vol, b, br.plane_rows_plain)
+    assert build.LAUNCHES['bias_rows'] == before + 4 + BIAS_SHAPE[0]
+    for k, p in zip(enc + dec, enc_p + dec_p):
+        assert (k - p).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize('K,kf', [(5, 24), (5, 64), (7, 8)])
+def test_bias_rows_bit_equal_across_batch_and_layout(cuda_device, K, kf):
+    """An image's rows are the same bits at B=16 and at B=1, and in the
+    encode layout (a level of all planes a launch) and the decode layout
+    (four levels of one plane a launch)."""
+    b = 16
+    fold, vol = _bias_case(cuda_device, K, kf, b, seed=3)
+    enc = _bias_encode(fold, vol, b)
+    dec = _bias_decode(fold, K, vol, b)
+    C = BIAS_SHAPE[0]
+    one = [v[5 * C:6 * C].contiguous() for v in vol]     # image 5 alone
+    enc1, dec1 = _bias_encode(fold, one, 1), _bias_decode(fold, K, one, 1)
+    for e, d, e1, d1 in zip(enc, dec, enc1, dec1):
+        assert torch.equal(e, d)
+        assert torch.equal(e1[0], e[5]) and torch.equal(d1[0], e[5])
+
+
+def test_bias_rows_generic_instance_keeps_the_bits(cuda_device):
+    """At K = 5, kf = 24 the generic instance (run-time widths, one weight
+    slice at a time) gives the compile-time instance's bits: the same fmaf
+    chain."""
+    b = 3
+    fold, vol = _bias_case(cuda_device, 5, 24, b, seed=4)
+    for fast, gen in zip(_bias_encode(fold, vol, b) + _bias_decode(fold, 5, vol, b),
+                         _bias_encode(fold, vol, b, force=ck.FORCE_GENERIC)
+                         + _bias_decode(fold, 5, vol, b, force=ck.FORCE_GENERIC)):
+        assert torch.equal(fast, gen)
+
+
+def test_k5_round_trip_launches_no_bias_row_convolution(cuda_device, monkeypatch):
+    """A K=5 B=16 round trip of 32 planes makes 4 + 32 = 36 bias-row
+    launches, 36 planar.bias_rows spans, and no F.conv2d call."""
+    from torch.profiler import ProfilerActivity, profile
+    from imgcomp_cvpr_tpu_torch.utils import spans
+    shape = (32, 8, 12)
+    pc, cfg = _planar_pc(cuda_device, kf=24, seed=6)
+    centers = torch.linspace(-2, 2, 6, device=cuda_device)
+    syms = torch.from_numpy(np.random.RandomState(6).randint(0, 6, (16,) + shape))
+    syms = syms.to(cuda_device)
+    convs = []
+    conv2d = torch.nn.functional.conv2d
+    monkeypatch.setattr(torch.nn.functional, 'conv2d',
+                        lambda *a, **k: convs.append(1) or conv2d(*a, **k))
+    lc = codec.LatentCodec(pc, cfg, device=cuda_device)
+    build.reset_launches()
+    spans.take()
+    with profile(activities=[ProfilerActivity.CPU]):
+        res = lc.encode_batch(syms, centers)
+        dec = lc.decode_batch([r.bitstream for r in res], centers)
+    names = [n for n, *_ in spans.take()]
+    assert torch.equal(dec.long(), syms.long())
+    assert build.LAUNCHES['bias_rows'] == 36 and names.count('planar.bias_rows') == 36
+    assert not convs
+
+
+# The sha256 of the K=5 streams of a seeded input written on the card
+# (csrc/bias_rows.cu's fixed sum order): a change that moves it moves the
+# bytes of container impl id 6.
+K5_CARD_STREAMS_SHA256 = 'b34df3797417cb1e170c00629f02233cc6b7f9d37cd3625cf9589b1223c58d8e'
+
+
+def test_k5_card_streams_digest(cuda_device):
+    """The K=5 card streams of a seeded input keep their bytes."""
+    import hashlib
+    shape = (4, 16, 24)
+    pc, cfg = _planar_pc(cuda_device, kf=24, seed=12)
+    centers = torch.linspace(-2, 2, 6, device=cuda_device)
+    syms = torch.from_numpy(np.random.RandomState(12).randint(0, 6, (3,) + shape))
+    res = codec.LatentCodec(pc, cfg, device=cuda_device).encode_batch(syms.to(cuda_device),
+                                                                       centers)
+    digest = hashlib.sha256(b''.join(r.bitstream for r in res)).hexdigest()
+    assert digest == K5_CARD_STREAMS_SHA256, digest
 
 
 # ---------------------------------------------------------------------------
