@@ -113,22 +113,14 @@ Phases, one line each:
      images: PASS against phase 7's bpp and MS-SSIM for those images, FAIL at
      1.2x the bpp. Kernels 1, 2, 3, 5 and 6 must launch, and each is held
      to its plain version on the inputs the tools gave it (not counted);
-  9. the scan codecs and data parallelism. 9a: LatentCodec(impl=direct,
-     cached, ring), container impl id 7, on the card with the trained K=3
-     model on 64x96 crops of three natkodak24 images (latent (32, 8, 12),
-     B=3): byte-identical containers, each decoding the shared streams
-     CRC-verified bit-exact, per-cell tables equal to kernel 2's on every
-     cell, encode / decode ms; direct at K=5 (phase 5's seeded pc base) on
-     the first crop, bit-exact, its per-cell tables held to kernel 5's on
-     the card (|delta| <= 2 on at most 1% of the cells: two summation
-     orders). 9b: the data-parallel train
-     step at full width on phase 6's batch: world size 1 under NCCL, 2
-     steps (loss, the averaged gradients, the parameters) equal bit for bit
-     to 2 non-parallel steps (deterministic cuDNN), its ms a step beside the
-     non-parallel step's and phase 6b's; then 2 spawned ranks sharing the
-     card under gloo against 1 rank, one step, the averaged gradients
-     included (held to twice the distance between one rank's gradients
-     on the batch and on the batch reversed).
+  9. data parallelism. 9b: the data-parallel train step at full width on
+     phase 6's batch: world size 1 under NCCL, 2 steps (loss, the averaged
+     gradients, the parameters) equal bit for bit to 2 non-parallel steps
+     (deterministic cuDNN), its ms a step beside the non-parallel step's
+     and phase 6b's; then 2 spawned ranks sharing the card under gloo
+     against 1 rank, one step, the averaged gradients included (held to
+     twice the distance between one rank's gradients on the batch and on
+     the batch reversed).
      9c: phase 7's sweep with and without real_bpp, and its K=5 run,
      through EvalModel and LatentCodec given the card twice: phase 7's
      measures rows and stream bytes exactly;
@@ -1808,116 +1800,6 @@ def tools_path(dev, val_info):
     return launches
 
 
-def scan_twins(dev, ae, pc, pc_config, pc5, pc5_config):
-    """Phase 9a: the scan codecs of container impl id 7 on the card. The
-    trained K=3 model on 64x96 crops of three natkodak24 images (latent
-    (32, 8, 12), B=3) through LatentCodec(impl=direct / cached / ring):
-    byte-identical containers, each decoding the (shared) streams
-    CRC-verified bit-exact, per-cell tables equal to kernel 2's on every
-    entry; direct at K=5 (seeded pc base) round trip on the first crop, its
-    tables held to kernel 5's. Returns text."""
-    import torch
-    from PIL import Image
-    from imgcomp_cvpr_tpu_torch.coding import codec as codec_lib
-    from imgcomp_cvpr_tpu_torch.coding import cuda_codec
-    from imgcomp_cvpr_tpu_torch.coding import cuda_kernel as ck
-    from imgcomp_cvpr_tpu_torch.coding import planar, planar_codec, scan_codec
-    from imgcomp_cvpr_tpu_torch.data import val_images
-
-    paths, _ = val_images.get_image_paths(NATKODAK)
-    crops = [np.asarray(Image.open(p).convert('RGB'))[:64, :96] for p in paths[:3]]
-    with torch.no_grad():
-        enc = ae.encode(torch.from_numpy(np.stack(crops)).to(dev).to(torch.float32))
-    syms = enc.symbols.permute(0, 3, 1, 2).contiguous()       # (3, 32, 8, 12)
-    shape, B = tuple(syms.shape[1:]), syms.shape[0]
-    n = int(np.prod(shape))
-    if shape != (32, 8, 12):
-        raise AssertionError(f'9a: latent {shape}')
-    centers = ae.encoder.centers.detach().cpu().numpy()
-    host = syms.cpu().numpy().astype(np.int8)
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.time()
-        out = fn()
-        torch.cuda.synchronize()
-        return (time.time() - t) * 1e3, out
-
-    streams, ms = {}, {}
-    for impl in scan_codec.SCAN_IMPLS:
-        lc = codec_lib.LatentCodec(pc, pc_config, device=dev, impl=impl)
-        enc_ms, res = timed(lambda: lc.encode_batch(host, centers))
-        streams[impl] = [r.bitstream for r in res]
-        ms[impl] = enc_ms
-    ref = streams['direct']
-    if any(streams[i] != ref for i in scan_codec.SCAN_IMPLS):
-        raise AssertionError('9a: the scan codecs wrote different containers')
-    if {codec_lib.stream_impl_id(b) for b in ref} != {codec_lib.IMPL_WAVEFRONT}:
-        raise AssertionError('9a: the scan containers do not carry impl id 7')
-    dec_ms = {}
-    for impl in scan_codec.SCAN_IMPLS:
-        lc = codec_lib.LatentCodec(pc, pc_config, device=dev, impl=impl)
-        dec_ms[impl], dec = timed(lambda: lc.decode_batch(ref, centers, verify=True))
-        if not torch.equal(dec.long(), syms.long()):
-            raise AssertionError(f'9a: {impl} did not decode the shared streams')
-    fw = cuda_codec.fold_weights(pc, ae.encoder.centers.detach())
-    f2, s2 = ck.wavefront_forward(ck.MODE_ENCODE, fw, shape,
-                                  true_syms=syms.reshape(B, n).int().contiguous())
-    kidx = ck.build_schedule(shape).idx_cm
-    want = (scan_codec.cell_tables(f2.long(), kidx, n), scan_codec.cell_tables(s2.long(), kidx, n))
-    for impl in scan_codec.SCAN_IMPLS:
-        f, s_, sched = scan_codec.ScanCoder(pc, pc_config, dev, impl).encode_tables(host, centers)
-        idx = np.where(sched.active, sched.sym_flat, n)
-        got = (scan_codec.cell_tables(f, idx, n), scan_codec.cell_tables(s_, idx, n))
-        bad = int(((got[0] != want[0]) | (got[1] != want[1])).sum().item())
-        if bad:
-            raise AssertionError(f'9a: {impl}: {bad} of {B * n} cells differ from kernel 2\'s tables')
-    lc5 = codec_lib.LatentCodec(pc5, pc5_config, device=dev, impl='direct')
-    enc5_ms, res5 = timed(lambda: lc5.encode_batch(host[:1], centers))
-    dec5_ms, dec5 = timed(lambda: lc5.decode_batch([r.bitstream for r in res5], centers,
-                                                   verify=True))
-    if not torch.equal(dec5.long(), syms[:1].long()):
-        raise AssertionError('9a: direct at K=5 did not round-trip')
-    # direct's K=5 tables against kernel 5's (the planar codec's level
-    # passes) on the card: a wrong tap order, skip index or all-pad constant
-    # would still round-trip, but not match these. The two sum a cell in
-    # different orders (kernel 5 takes the lower planes' taps from cuDNN's
-    # conv2d as bias rows, direct chains every tap), so a logit may differ
-    # by an ulp and a CDF entry flip by 1: 7 of 3072 cells on an H100
-    # (0.23%). A fault of the kinds above moves ~99% of the cells by
-    # thousands (508 of 512 in the CPU test's scratch mutations): the bound
-    # is |delta| <= 2 on at most 1% of the cells.
-    f5, s5, sched5 = scan_codec.ScanCoder(pc5, pc5_config, dev, 'direct').encode_tables(
-        host[:1], centers)
-    coder5 = planar_codec.PlanarCoder(pc5, pc5_config, dev)
-    _, fold5 = coder5._prepare(shape, ae.encoder.centers.detach())
-    kf5, ks5 = coder5.encode_tables(syms[:1].int().contiguous(), fold5)
-    C, H, W = shape
-    pidx = np.asarray(planar.build_planar_schedule(shape, 5).idx_cm, np.int64)
-    kidx5 = np.concatenate([np.where(pidx < H * W, pidx + d * H * W, n) for d in range(C)])
-    idx5 = np.where(sched5.active, sched5.sym_flat, n)
-    got = [scan_codec.cell_tables(t, idx5, n) for t in (f5, s5)]
-    want = [scan_codec.cell_tables(t.long(), kidx5, n) for t in (kf5, ks5)]
-    off = (got[0] != want[0]) | (got[1] != want[1])
-    flips5 = int(off.sum().item())
-    delta5 = max(int((g - w).abs()[off].max().item()) if flips5 else 0
-                 for g, w in zip(got, want))
-    if delta5 > 2 or flips5 > 1e-2 * n:
-        raise AssertionError(f'9a: direct at K=5: {flips5} of {n} cells differ from kernel 5\'s '
-                             f'tables (largest |delta| {delta5})')
-    per = ', '.join(f'{i} {ms[i]:.1f} / {dec_ms[i]:.1f}' for i in scan_codec.SCAN_IMPLS)
-    return (f'trained K=3 model, 64x96 crops of 3 natkodak24 images, latent {shape}, B={B}, '
-            f'on {dev}: direct, cached and ring write byte-identical id-7 containers '
-            f'({sum(len(b) for b in ref)} bytes, {8 * sum(len(b) for b in ref) / (B * 64 * 96):.5f} '
-            f'bpp), each decodes them CRC-verified bit-exact, and their per-cell tables equal '
-            f'kernel 2\'s (wavefront_forward encode) on all {B * n} cells; ms encode / decode '
-            f'(wall, synchronized): {per}; direct at K=5 (seeded pc base, the first crop, '
-            f'{sched5.T} steps of M={sched5.M}): round trip CRC-verified bit-exact, '
-            f'{enc5_ms:.1f} / {dec5_ms:.1f} ms; its per-cell tables against kernel 5\'s on '
-            f'the card (PlanarCoder.encode_tables): {flips5} of {n} cells differ (largest '
-            f'|delta| {delta5}; tol 1% and 2: two summation orders)')
-
-
 def recorded_step(trainer, state, batch):
     """trainer.train_step, also returning the gradients that the optimizer
     steps with (after a data-parallel trainer's all-reduce), on the host,
@@ -2233,12 +2115,11 @@ def dp_validation(dev, val_info):
         f'in the real-bpp runs { {k: v for k, v in launches.items() if v} }')
 
 
-def parallel_path(dev, ae, pc, pc_config, pc5, pc5_config, val_info, step_ms6):
-    """Phase 9: the scan codecs and data parallelism. Returns the launch
-    counts of the data-parallel runs (9b's train steps, 9c's validation),
-    each read just after its run."""
+def parallel_path(dev, val_info, step_ms6):
+    """Phase 9: data parallelism. Returns the launch counts of the
+    data-parallel runs (9b's train steps, 9c's validation), each read just
+    after its run."""
     t_phase = time.time()
-    print(f'[9a scan codecs] {scan_twins(dev, ae, pc, pc_config, pc5, pc5_config)}', flush=True)
     train_launches, text = dp_training(dev, step_ms6)
     print(f'[9b data-parallel training] {text}', flush=True)
     val_launches, text = dp_validation(dev, val_info)
@@ -3444,8 +3325,8 @@ def main(argv):
     # ---- phase 8: the tools ------------------------------------------------
     launches[8] = tools_path(dev, val_info)
 
-    # ---- phase 9: the scan codecs, data-parallel training and validation --
-    launches[9] = parallel_path(dev, ae, pc, pc_config, pc5, pc5_config, val_info, step_ms6)
+    # ---- phase 9: data-parallel training and validation --------------------
+    launches[9] = parallel_path(dev, val_info, step_ms6)
 
     # ---- phase 10: kernel 2 at bf16 and f8 (container prec 1 and 2) -------
     launches[10] = precision_path(dev, ae, pc, pc_config, x, centers, rt4, rows)

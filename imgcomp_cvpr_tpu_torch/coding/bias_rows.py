@@ -141,6 +141,9 @@ class _Args(ctypes.Structure):
                 + [(k, ctypes.c_int) for k in ('nlev', 'B', 'D', 'K', 'kd1', 'force')])
 
 
+_ARGTYPES = (_Args, ctypes.c_void_p)     # (arguments, stream)
+
+
 def _level(fold, level: int, srcs, offs, src_img: int, src_plane: int, nconst: int,
            out: torch.Tensor, out_img: int, out_plane: int) -> _Level:
     """One level's descriptor (csrc/bias_rows.cu's BiasLevel). It holds raw
@@ -163,9 +166,7 @@ def _launch(fold, levels: Sequence[_Level], B: int, D: int, force: int) -> None:
     a = _Args(nlev=len(levels), B=B, D=D, K=K, kd1=kd1, force=force)
     for v, lv in enumerate(levels):
         a.lv[v] = lv
-    fn = build.load('bias_rows').bias_rows
-    fn.argtypes = [_Args, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.entry('bias_rows', 'bias_rows', _ARGTYPES)
     dev = fold.low[0].device
     with build.on_device(dev):
         err = fn(a, build.stream_ptr(dev))

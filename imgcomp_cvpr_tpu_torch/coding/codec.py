@@ -4,11 +4,10 @@ container half of imgcomp_cvpr_tpu/coding/codec.py:41-146,586-1041).
 The container bytes are the JAX package's, byte for byte, for the same
 inputs and impl id; the port writes its own impl ids, since logits computed
 on a GPU are not bitwise those of a TPU and a stream decodes only through
-the implementation that encoded it: IMPL_CUDA = 5 (the K=3 wavefront codec),
-IMPL_CUDA_PLANAR = 6 (the planar codec) and IMPL_WAVEFRONT = 7 (the scan
-codecs direct / cached / ring, which write the same bytes; the 3-bit field
-has no fourth free id, and a matmul's summation order is not fixed across
-shapes, so three matmul-based scans could not have shared one). Only
+the implementation that encoded it: IMPL_CUDA = 5 (the K=3 wavefront codec)
+and IMPL_CUDA_PLANAR = 6 (the planar codec). Id 7 (IMPL_WAVEFRONT) was the
+port's scan codecs, since retired: its streams are refused like ids 0-4,
+and a codec that takes the id again needs a pinned digest of its own. Only
 container v11 is parsed (the frozen v8-v10 branches are not ported).
 """
 
@@ -24,15 +23,14 @@ MAGIC = b'\xa7'
 VERSION = 11
 
 # Ids 0-4 are the JAX package's (named as it names them; the port decodes
-# none of them); 5-7 are the port's.
+# none of them); 5 and 6 are the port's, 7 its retired scan codecs'.
 IMPL_DIRECT, IMPL_CACHED, IMPL_RING, IMPL_PALLAS, IMPL_PLANAR = 0, 1, 2, 3, 4
 IMPL_CUDA, IMPL_CUDA_PLANAR, IMPL_WAVEFRONT = 5, 6, 7
 IMPL_NAMES = {IMPL_DIRECT: 'direct', IMPL_CACHED: 'cached', IMPL_RING: 'ring',
               IMPL_PALLAS: 'pallas', IMPL_PLANAR: 'planar', IMPL_CUDA: 'cuda',
               IMPL_CUDA_PLANAR: 'cuda_planar', IMPL_WAVEFRONT: 'wavefront'}
 # The id each of the port's impls writes.
-IMPL_IDS = {'cuda': IMPL_CUDA, 'cuda_planar': IMPL_CUDA_PLANAR, 'direct': IMPL_WAVEFRONT,
-            'cached': IMPL_WAVEFRONT, 'ring': IMPL_WAVEFRONT}
+IMPL_IDS = {'cuda': IMPL_CUDA, 'cuda_planar': IMPL_CUDA_PLANAR}
 IMPLS = ('auto',) + tuple(IMPL_IDS)
 
 TAIL_MIN_LANE_SYMBOLS = 256   # tail packing only for lanes this long (tiny
@@ -397,12 +395,9 @@ class LatentCodec:
 
     ``impl``: 'auto' codes kernel_size 3 with the K=3 wavefront codec
     ('cuda', coding/cuda_codec.py, id 5) and any other kernel_size with the
-    planar codec ('cuda_planar', coding/planar_codec.py, id 6); 'direct',
-    'cached' and 'ring' are the scan codecs (coding/scan_codec.py, id 7;
-    'cached' and 'ring' become 'cuda_planar' off K=3, as does 'cuda').
-    Decode routes each stream on its container's impl id: id 7 goes to this
-    codec's own scan when it has one, else to 'direct' (the quickest of the
-    three on a card).
+    planar codec ('cuda_planar', coding/planar_codec.py, id 6); 'cuda' off
+    K=3 becomes 'cuda_planar'. Decode routes each stream on its container's
+    impl id, and refuses any id but 5 and 6.
 
     ``device`` is one device or a list: with several, a batch is padded to
     a multiple of their count by repeating its last image, split into equal
@@ -413,9 +408,8 @@ class LatentCodec:
     the operand precision of the 'cuda' codec's encode (kernel 2); None reads
     $IMGCOMP_PALLAS_PREC at each encode, f32 when it is unset
     (cuda_codec.encode_prec). A stream decodes at its own precision. The
-    planar and scan codecs write precision 0 only, as the JAX package's
-    planar and XLA codecs do: they ignore the variable and refuse another
-    ``prec``."""
+    planar codec writes precision 0 only, as the JAX package's planar codec
+    does: it ignores the variable and refuses another ``prec``."""
 
     def __init__(self, pc, pc_config, device='cuda', impl: str = 'auto', prec=None):
         from .. import resolve_device
@@ -428,7 +422,7 @@ class LatentCodec:
         k3 = pc_config.kernel_size == 3
         if impl == 'auto':
             impl = 'cuda' if k3 else 'cuda_planar'
-        elif impl in ('cuda', 'cached', 'ring') and not k3:
+        elif impl == 'cuda' and not k3:
             impl = 'cuda_planar'
         self.impl = impl
         self.impl_id = IMPL_IDS[impl]
@@ -442,32 +436,21 @@ class LatentCodec:
         self._coders = {}
 
     def coder(self, impl_id: int, device=None):
-        """The coder of a port impl id (5, 6 or 7) on ``device`` (default:
-        the first); raises for any other id."""
-        from .scan_codec import SCAN_IMPLS
-        if impl_id == IMPL_CUDA:
-            name = 'cuda'
-        elif impl_id == IMPL_CUDA_PLANAR:
-            name = 'cuda_planar'
-        elif impl_id == IMPL_WAVEFRONT:
-            name = self.impl if self.impl in SCAN_IMPLS else 'direct'
-        else:
+        """The coder of a port impl id (5 or 6) on ``device`` (default: the
+        first); raises for any other id."""
+        if impl_id not in (IMPL_CUDA, IMPL_CUDA_PLANAR):
             raise ValueError(
                 f'stream impl id {impl_id} ({IMPL_NAMES.get(impl_id, "?")}) is not '
-                'decodable by the port (impl cuda, id 5, cuda_planar, id 6, or the '
-                'scans direct / cached / ring, id 7)')
+                'decodable by the port (impl cuda, id 5, or cuda_planar, id 6)')
         dev = self.device if device is None else device
-        key = (name, str(dev))
+        key = (impl_id, str(dev))
         if key not in self._coders:
-            if name == 'cuda':
+            if impl_id == IMPL_CUDA:
                 from .cuda_codec import CudaCoder
                 self._coders[key] = CudaCoder(self.pc, self.pc_config, dev, self.prec)
-            elif name == 'cuda_planar':
+            else:
                 from .planar_codec import PlanarCoder
                 self._coders[key] = PlanarCoder(self.pc, self.pc_config, dev)
-            else:
-                from .scan_codec import ScanCoder
-                self._coders[key] = ScanCoder(self.pc, self.pc_config, dev, name)
         return self._coders[key]
 
     def encode_batch_submit(self, symbols, centers):

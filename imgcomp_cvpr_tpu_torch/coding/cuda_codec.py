@@ -330,7 +330,7 @@ def parse_batch(bitstreams: Sequence[bytes], cap_of, totals_of,
                 precs: Tuple[int, ...] = (0,)) -> ParsedBatch:
     """Parse container v11 streams of one latent shape and one precision
     (a prec byte in ``precs``: the K=3 wavefront codec decodes 0, 1 and 2,
-    the planar and scan codecs write and decode 0 only): cap_of(shape) is
+    the planar codec writes and decodes 0 only): cap_of(shape) is
     the word capacity, totals_of(shape) the (r,) active symbols per lane, so
     a tail-packed lane has thresh = total - k (no pull in its last k)."""
     with span('codec.parse'):

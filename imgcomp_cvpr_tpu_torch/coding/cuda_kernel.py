@@ -653,6 +653,9 @@ class _FwdArgs(ctypes.Structure):
                     'thresh', 'syms_out', 'prof')])
 
 
+_FWD_ARGTYPES = (_FwdArgs, ctypes.c_void_p)     # (arguments, stream)
+
+
 def _check_cuda(name, t, dtype, shape, device):
     if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
         raise ValueError(f'{name}: expected {dtype} {tuple(shape)} on {device}, '
@@ -770,10 +773,8 @@ def wavefront_forward(mode: int, weights: FoldedWeights,
         setattr(a, f'ptr{l + 1}', p(tabs.ptr[l]).value)
         setattr(a, f'cells{l + 1}', p(tabs.cells[l]).value)
         setattr(a, f'taps{l + 1}', p(tabs.taps[l]).value)
-    lib = build.load('wavefront_forward')
-    fn = lib.wavefront_encode if parallel else lib.wavefront_forward
-    fn.argtypes = [_FwdArgs, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.entry('wavefront_forward', 'wavefront_encode' if parallel else
+                     'wavefront_forward', _FWD_ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(a, build.stream_ptr(dev))
     build.LAUNCHES[launch_name('wavefront_forward_encode' if parallel else
@@ -790,9 +791,7 @@ def max_active_clusters(kf: int, L: int, CQ: int, T: int, cluster: int, prec: in
     """cudaOccupancyMaxActiveClusters of the scan kernel (its instance of
     precision ``prec``): how many images the card scans at once with
     ``cluster`` blocks an image."""
-    fn = build.load('wavefront_forward').wavefront_max_clusters
-    fn.argtypes = [ctypes.c_int] * 6
-    fn.restype = ctypes.c_int
+    fn = build.entry('wavefront_forward', 'wavefront_max_clusters', (ctypes.c_int,) * 6)
     out = fn(kf, L, CQ, T, cluster, prec_id(prec))
     if out < 0:
         raise RuntimeError(f'cudaOccupancyMaxActiveClusters: cudaError {-out}')
@@ -806,9 +805,7 @@ def weights_in_device(kf: int, L: int, CQ: int, T: int, encode: bool = False,
     encode) reads the weights from device memory at these widths: they do not
     fit in a block's shared memory beside the rest (kf >= ~39 at L = 6 and
     the Kodak latent), or ``force`` asks for it."""
-    fn = build.load('wavefront_forward').wavefront_weights_in_device
-    fn.argtypes = [ctypes.c_int] * 7
-    fn.restype = ctypes.c_int
+    fn = build.entry('wavefront_forward', 'wavefront_weights_in_device', (ctypes.c_int,) * 7)
     out = fn(kf, L, CQ, T, force, int(encode), prec_id(prec))
     if out < 0:
         raise RuntimeError(f'wavefront_weights_in_device: cudaError {-out}')
@@ -844,6 +841,7 @@ def reverse_list(active: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 REVERSE_LIST_PAD = 32   # the kernel's tiles of list entries divide this
 REVERSE_PROF = 7        # profile columns an image (NPROF in csrc/rans_reverse.cu)
+_REVERSE_ARGTYPES = (ctypes.c_int,) * 4 + (ctypes.c_uint,) + (ctypes.c_void_p,) * 10
 
 
 class ReverseList(NamedTuple):
@@ -899,38 +897,14 @@ def rdiv_update(x: np.ndarray, f: np.ndarray, s: np.ndarray) -> np.ndarray:
     return np.where(x - q0 * f >= f, (y + g) & mask, y)
 
 
-def reverse_plain(fsel: torch.Tensor, ssel: torch.Tensor, active: np.ndarray,
-                  cap: int, x0: int = rans.RANS_L):
-    """Reverse interleaved rANS over any (rows, CQ) activity table: walk rows
-    T-1..0 and their R-lane chunks S-1..0 of the (B, T, CQ) tables. Returns
-    (words (B, cap) int32 in emission order, n_words (B,) int32, states
-    (B, R) int32 holding the uint32 bits, k (B, R) int32 warmup counts);
-    image b's decode-order stream is words[b, :n_words[b]] reversed."""
-    dev = fsel.device
-    B, T, CQ = fsel.shape
-    act = torch.from_numpy(active).to(dev)
-    words = torch.zeros(B, cap, dtype=torch.long, device=dev)
-    states = torch.full((B, R), x0, dtype=torch.long, device=dev)
-    gw = torch.zeros(B, dtype=torch.long, device=dev)
-    kw = torch.zeros(B, R, dtype=torch.long, device=dev)
-    f_all, s_all = fsel.long(), ssel.long()
-    for t in range(T - 1, -1, -1):
-        for si in range(CQ // R - 1, -1, -1):
-            lanes = slice(si * R, (si + 1) * R)
-            if not active[t, lanes].any():
-                continue
-            a = act[t, lanes]
-            states, gw, kw = rans.encode_reverse_step_interleaved(
-                states, gw, kw, f_all[:, t, lanes], s_all[:, t, lanes],
-                a[None].expand(B, R), words, x0 < rans.RANS_L)
-    return words.int(), gw.int(), to_int32_bits(states), kw.int()
-
-
 def reverse_plain_list(fsel: torch.Tensor, ssel: torch.Tensor, rows: np.ndarray,
                        masks: np.ndarray, cap: int, x0: int = rans.RANS_L):
-    """reverse_plain driven by a reverse_list (rows, masks) instead of an
-    activity table: runs exactly the listed lane rows of the (B, ..., W)
-    tables, in list order, with the listed lanes active. Same outputs."""
+    """Reverse interleaved rANS, the plain version of kernels 3 and 6: runs
+    exactly the lane rows of a reverse_list (rows, masks) of the (B, ..., W)
+    tables, in list order, with the listed lanes active. Returns (words (B,
+    cap) int32 in emission order, n_words (B,) int32, states (B, R) int32
+    holding the uint32 bits, k (B, R) int32 warmup counts); image b's
+    decode-order stream is words[b, :n_words[b]] reversed."""
     dev = fsel.device
     B = fsel.shape[0]
     f_all, s_all = fsel.reshape(B, -1, R).long(), ssel.reshape(B, -1, R).long()
@@ -951,7 +925,7 @@ def reverse_launch(fsel: torch.Tensor, ssel: torch.Tensor, rlist: ReverseList,
                    cap: int, x0: int, prof: Optional[torch.Tensor] = None):
     """Launch csrc/rans_reverse.cu on (B, T, W) int32 CUDA tables (W a
     multiple of R) over the non-empty lane rows of ``rlist``. Same outputs
-    as reverse_plain. ``prof`` (B, REVERSE_PROF) int64 on the device
+    as reverse_plain_list. ``prof`` (B, REVERSE_PROF) int64 on the device
     receives, per image: the chain warp's clocks, its clocks waiting for
     tiles, the sub-iterations run, the two producer warps' and the writer
     warp's clocks waiting, and the chain warp's clocks in its state updates.
@@ -979,9 +953,7 @@ def reverse_launch(fsel: torch.Tensor, ssel: torch.Tensor, rlist: ReverseList,
     n_words = torch.empty(B, dtype=i32, device=dev)
     states = torch.empty(B, R, dtype=i32, device=dev)
     kw = torch.empty(B, R, dtype=i32, device=dev)
-    fn = build.load('rans_reverse').rans_reverse
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_uint] + [ctypes.c_void_p] * 10
-    fn.restype = ctypes.c_int
+    fn = build.entry('rans_reverse', 'rans_reverse', _REVERSE_ARGTYPES)
     p = build.ptr
     with torch.cuda.device(dev):
         err = fn(B, T * W // R, E, cap, x0, p(rlist.row), p(rlist.mask), p(fsel),
@@ -994,10 +966,10 @@ def reverse_launch(fsel: torch.Tensor, ssel: torch.Tensor, rlist: ReverseList,
 def rans_reverse_plain(fsel: torch.Tensor, ssel: torch.Tensor,
                        latent_shape: Tuple[int, int, int], x0: int = rans.RANS_L):
     """Plain version of kernel 3 over the wavefront's chunk-major (B, T, CQ)
-    tables; outputs as reverse_plain."""
+    tables; outputs as reverse_plain_list."""
     sched = build_schedule(latent_shape)
     n = int(np.prod(sched.latent_shape))
-    return reverse_plain(fsel, ssel, sched.idx_cm < n, sched.stream_cap, x0)
+    return reverse_plain_list(fsel, ssel, *reverse_list(sched.idx_cm < n), sched.stream_cap, x0)
 
 
 def rans_reverse(fsel: torch.Tensor, ssel: torch.Tensor,

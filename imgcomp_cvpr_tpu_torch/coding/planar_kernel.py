@@ -221,6 +221,9 @@ class _PlaneArgs(ctypes.Structure):
                     'gptr_out', 'prof')])
 
 
+_PLANE_ARGTYPES = (_PlaneArgs, ctypes.c_void_p)     # (arguments, stream)
+
+
 def _plane_args(weights: PlaneWeights, sched: planar.PlanarSchedule, pairs: int,
                 **fields) -> '_PlaneArgs':
     """The C argument struct for ``pairs`` planes (images in the scan, (image,
@@ -251,9 +254,7 @@ def _plane_args(weights: PlaneWeights, sched: planar.PlanarSchedule, pairs: int,
 
 
 def _launch(entry: str, a: '_PlaneArgs', dev) -> None:
-    fn = getattr(build.load('plane_forward'), entry)
-    fn.argtypes = [_PlaneArgs, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.entry('plane_forward', entry, _PLANE_ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(a, build.stream_ptr(dev))
     build.check(err, entry)
@@ -399,9 +400,7 @@ def weights_in_device(weights: PlaneWeights, latent_shape: Tuple[int, int, int],
     a block's shared memory (kf >= ~46 at K = 5, L = 6), or ``force`` asks
     for it."""
     sched = planar.build_planar_schedule(latent_shape, K)
-    fn = build.load('plane_forward').plane_weights_in_device
-    fn.argtypes = [_PlaneArgs, ctypes.c_int]
-    fn.restype = ctypes.c_int
+    fn = build.entry('plane_forward', 'plane_weights_in_device', (_PlaneArgs, ctypes.c_int))
     out = fn(_plane_args(weights, sched, 1, force=force), int(scan))
     if out < 0:
         raise RuntimeError(f'plane_weights_in_device: cudaError {-out}')
@@ -470,10 +469,11 @@ def plane_reverse_plain(fsel: torch.Tensor, ssel: torch.Tensor,
                         x0: int = rans.RANS_L):
     """Plain version of kernel 6: fsel/ssel (B, C*T2, R) int32 in (plane,
     step) coding order -> (words (B, cap), n_words (B,), states (B, R), k
-    (B, R)) as ck.reverse_plain; within a step words go in descending lane
-    rank, and the warmup counts k are taken before the renormalisation."""
+    (B, R)) as ck.reverse_plain_list; within a step words go in descending
+    lane rank, and the warmup counts k are taken before the renormalisation."""
     sched = planar.build_planar_schedule(latent_shape, K)
-    return ck.reverse_plain(fsel, ssel, _full_active(sched), sched.stream_cap, x0)
+    return ck.reverse_plain_list(fsel, ssel, *ck.reverse_list(_full_active(sched)),
+                                 sched.stream_cap, x0)
 
 
 def plane_reverse(fsel: torch.Tensor, ssel: torch.Tensor,

@@ -14,7 +14,7 @@
 // clamped to 1; words at pos >= cap are dropped but counted. Fed the same
 // tables, words, n_words, final states and k are byte-identical to the
 // Pallas kernels' and to the plain version (coding/cuda_kernel.py::
-// reverse_plain).
+// reverse_plain_list).
 //
 // What bounds it on the H100: not bytes (the tables are read once, ~0.02 ms
 // at 3.35 TB/s for a B=16 Kodak-size batch) but the chain of dependent state

@@ -12,16 +12,15 @@ the same bits. The kernel does no autograd: a tensor that needs grad raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional, Sequence
+from typing import Sequence
 
 import torch
 
 from . import build
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P, _I, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _I, _P, _P, _P, _P]
+_ARGTYPES = (_P, _I, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _I, _P, _P, _P, _P)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_fn: Optional[Callable] = None
 
 
 def epilogue_plain(y: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
@@ -39,17 +38,6 @@ def epilogue_plain(y: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
     for r in residuals:
         out = out + r.to(dt)
     return out
-
-
-def _bind() -> Callable:
-    """The C entry, bound with its argument types once."""
-    global _fn
-    if _fn is None:
-        fn = build.load('ae_epilogue').ae_epilogue
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
 
 
 def epilogue(y: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch.Tensor,
@@ -83,7 +71,7 @@ def epilogue(y: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor, bias: torch
                       memory_format=torch.channels_last)
     r0 = rs[0].data_ptr() if rs else None
     r1 = rs[1].data_ptr() if len(rs) > 1 else None
-    fn = _bind()
+    fn = build.entry('ae_epilogue', 'ae_epilogue', _ARGTYPES)
     with build.on_device(y.device):
         err = fn(y.data_ptr(), code, n, c, h, w, *y.stride(), mean.data_ptr(), mul.data_ptr(),
                  bias.data_ptr(), int(act), r0, r1, out.data_ptr(),

@@ -7,7 +7,9 @@ hash of the source and of the shared headers ``csrc/*.cuh`` keys the file,
 so an edited source or header is rebuilt). All
 sources are compiled in parallel, one ``nvcc`` process each, the first time
 any kernel is asked for. Nothing is compiled when this module is imported:
-the CPU tests import it and never build.
+the CPU tests import it and never build. ``entry`` binds a C entry: its
+argument types are set once, its return type is ``int`` (a cudaError_t, or
+a count), and each wrapper keeps its own argument table.
 
 Launch counters: each wrapper adds one to ``LAUNCHES[name]`` where it
 launches its kernel, and nowhere else (``reset_launches`` zeroes them), so a
@@ -32,7 +34,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -68,6 +70,7 @@ LAUNCHES: Dict[str, int] = {
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[Tuple[str, str], Tuple[ctypes._CFuncPtr, tuple]] = {}
 _lock = threading.Lock()
 
 
@@ -131,6 +134,23 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(path)
             _libs[name] = lib
         return lib
+
+
+def entry(source: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of csrc/<source>.cu, bound on first use with
+    ``argtypes`` and an ``int`` return, and cached per (source, symbol).
+    Raises if the same symbol is asked for with other argument types."""
+    argtypes = tuple(argtypes)
+    bound = _entries.get((source, symbol))
+    if bound is None:
+        fn = getattr(load(source), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        bound = _entries.setdefault((source, symbol), (fn, argtypes))
+    if bound[1] != argtypes:
+        raise TypeError(f'{source}.{symbol} is bound with argument types {bound[1]}, '
+                        f'asked for with {argtypes}')
+    return bound[0]
 
 
 def check(err: int, what: str) -> None:

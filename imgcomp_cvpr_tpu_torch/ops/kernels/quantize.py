@@ -17,7 +17,7 @@ and ticket counter per (device, stream), made on the first call there.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,11 +27,8 @@ _BWD_THREADS = 256          # csrc/quantize_bwd.cu: THREADS
 _BWD_MAX_BLOCKS = 132 * 8   # 8 blocks for each of the H100's 132 SMs
 _MAX_CENTERS = 32           # csrc/quantize*.cu: MAX_CENTERS
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_ENTRIES = {   # C entry -> (csrc source, argument types)
-    'quantize_fwd': ('quantize', [_P, _LL, _P, _I, _F, _P, _P, _P, _P]),
-    'quantize_bwd': ('quantize_bwd', [_P, _P, _P, _LL, _P, _I, _F, _P, _P, _P, _P, _I, _P]),
-}
-_bound: Dict[str, Callable] = {}
+_FWD_ARGTYPES = (_P, _LL, _P, _I, _F, _P, _P, _P, _P)
+_BWD_ARGTYPES = (_P, _P, _P, _LL, _P, _I, _F, _P, _P, _P, _P, _I, _P)
 _bwd_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
@@ -106,18 +103,6 @@ def _check(x: torch.Tensor, centers: torch.Tensor, what: str) -> None:
         raise ValueError(f'{what}: x on {x.device}, centers on {centers.device}')
 
 
-def _bind(entry: str) -> Callable:
-    """The C function ``entry``, bound with its argument types once."""
-    fn = _bound.get(entry)
-    if fn is None:
-        source, argtypes = _ENTRIES[entry]
-        fn = getattr(build.load(source), entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _bound[entry] = fn
-    return fn
-
-
 def _empty_like_aligned(x: torch.Tensor, dtype: torch.dtype, off: int) -> torch.Tensor:
     """An empty 4-byte tensor of x's shape that starts ``off`` elements past a
     16-byte boundary, as x does (off = x.data_ptr() % 16 // 4), so that the
@@ -141,7 +126,7 @@ def quantize_fwd(x: torch.Tensor, centers: torch.Tensor, sigma: float = 1.0
     qsoft = _empty_like_aligned(xc, torch.float32, off)
     qhard = _empty_like_aligned(xc, torch.float32, off)
     sym = _empty_like_aligned(xc, torch.int32, off)
-    fn = _bind('quantize_fwd')
+    fn = build.entry('quantize', 'quantize_fwd', _FWD_ARGTYPES)
     with build.on_device(xc.device):
         err = fn(xc.data_ptr(), xc.numel(), cc.data_ptr(), cc.shape[0], float(sigma),
                  qsoft.data_ptr(), qhard.data_ptr(), sym.data_ptr(),
@@ -190,7 +175,7 @@ def quantize_bwd(x: torch.Tensor, centers: torch.Tensor,
     L = cc.shape[0]
     dx = _empty_like_aligned(xc, torch.float32, xc.data_ptr() % 16 // 4)
     dcenters = torch.empty(L, dtype=torch.float32, device=xc.device)
-    fn = _bind('quantize_bwd')
+    fn = build.entry('quantize_bwd', 'quantize_bwd', _BWD_ARGTYPES)
     with build.on_device(xc.device):
         stream = torch.cuda.current_stream().cuda_stream
         partial, counter = _scratch(xc.device, stream)

@@ -24,10 +24,8 @@ the plain versions, which no kernel change moves):
 Workload: random-init pc params (``probclass.init_params``, seed + 1) +
 uniform random symbols (``np.random.RandomState(seed)``) at a Kodak-ratio
 latent shape, batch 8, centers linspace(-2, 2, L). ``--impl`` is one of the
-port's codecs: ``cuda`` (K=3 wavefront, kernels 2 and 3), ``cuda_planar``
-(planar, kernels 5 and 6) or a scan codec, ``direct``, ``cached`` or ``ring``
-(coding/scan_codec.py, container impl id 7; cached and ring at K=3 only, and
-slow: size the shape down). The ``cuda`` codec encodes at the precision
+port's codecs: ``cuda`` (K=3 wavefront, kernels 2 and 3) or ``cuda_planar``
+(planar, kernels 5 and 6). The ``cuda`` codec encodes at the precision
 that $IMGCOMP_PALLAS_PREC names (f32 when unset), as the JAX tool's does;
 a dump records it. The port codes at bsub 1 only, so ``--bsubs`` is [1];
 any other value raises. A dump prints the sha256 digest of its streams
@@ -284,7 +282,7 @@ def main(argv=None):
         sp.add_argument('--seed', type=int, default=0)
         sp.add_argument('--batch', type=int, default=8)
         sp.add_argument('--impl', default='cuda',
-                        choices=['cuda', 'cuda_planar', 'direct', 'cached', 'ring'])
+                        choices=['cuda', 'cuda_planar'])
         sp.add_argument('--bsubs', type=int, nargs='+', default=list(_PORTED_BSUBS))
 
     sp = sub.add_parser('dump')

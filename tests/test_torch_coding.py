@@ -305,8 +305,8 @@ def test_entry_points_raise_without_card():
 
 
 def test_rans_primitives_match_jax():
-    """quantize_cdf, the scalar oracles, the per-lane reverse encoder and
-    one interleaved decode sub-iteration agree with the JAX rans module."""
+    """quantize_cdf and one interleaved decode sub-iteration agree with the
+    JAX rans module."""
     rng = np.random.RandomState(8)
     probs = rng.dirichlet(np.ones(6), size=(40,)).astype(np.float32)
     probs[0] = probs[0, [0, 0, 2, 3, 4, 5]]                # a tied argmax
@@ -314,22 +314,6 @@ def test_rans_primitives_match_jax():
     tf, tc = trans.quantize_cdf(torch.from_numpy(probs))
     np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
-    f, c = tf.numpy(), tc.numpy()
-    syms = rng.randint(0, 6, 40)
-    for x0 in (1, trans.RANS_L):
-        words, state, k = trans.scalar_encode(syms, f, c, x0)
-        assert (words, state, k) == tuple(jrans.scalar_encode(syms, f, c, x0))
-        np.testing.assert_array_equal(trans.scalar_decode(words, state, f, c, k), syms)
-    fs = np.take_along_axis(f, syms[:, None], 1).reshape(10, 4).astype(np.uint32)
-    ss = np.take_along_axis(c, syms[:, None], 1).reshape(10, 4).astype(np.uint32)
-    act = rng.rand(10, 4) < 0.8
-    for x0 in (1, trans.RANS_L):
-        a = trans.encode_reverse(fs, ss, act, x0)
-        b = jrans.vectorized_encode(fs, ss, act, x0)
-        for u, v in zip(a[0], b[0]):
-            np.testing.assert_array_equal(u, v)
-        np.testing.assert_array_equal(a[1], b[1])
-        np.testing.assert_array_equal(a[2], b[2])
     # One 32-lane decode sub-iteration on random states and words.
     L32 = 32
     pr = rng.dirichlet(np.ones(6), size=(L32,)).astype(np.float32)
@@ -349,6 +333,58 @@ def test_rans_primitives_match_jax():
     np.testing.assert_array_equal(ts_[0].numpy(), np.asarray(js_))
     np.testing.assert_array_equal(tst[0].numpy().astype(np.uint32), np.asarray(jst))
     assert int(tg[0]) == int(jg)
+
+
+def interleaved_encode(fs: torch.Tensor, ss: torch.Tensor, active: np.ndarray, x0: int):
+    """The interleaved reverse encode of a batch over (T, M) tables, one
+    rans.encode_reverse_step_interleaved sub-iteration at a time in JAX's
+    encode_reverse_scan_interleaved order (steps and sub-iterations last
+    first). fs / ss (B, T, M) int64 selected (freq, start), active (T, M)
+    bool, with JAX's lanes: r = R_LANES, or M when M < R_LANES. Returns
+    (words (B, T * M) int64 in emission order, n_words (B,), states (B, r),
+    warmup counts k (B, r)); image b's decode-order stream is
+    words[b, :n_words[b]] reversed."""
+    B, T, m = fs.shape
+    r = jrans.R_LANES if m >= jrans.R_LANES else m
+    act = torch.from_numpy(np.asarray(active, bool))
+    states = torch.full((B, r), x0, dtype=torch.long)
+    gw = torch.zeros(B, dtype=torch.long)
+    kwarm = torch.zeros(B, r, dtype=torch.long)
+    words = torch.zeros(B, T * m, dtype=torch.long)
+    for t in range(T - 1, -1, -1):
+        for si in range(m // r - 1, -1, -1):
+            sl = slice(si * r, (si + 1) * r)
+            states, gw, kwarm = trans.encode_reverse_step_interleaved(
+                states, gw, kwarm, fs[:, t, sl], ss[:, t, sl], act[t, sl].expand(B, r),
+                words, count_warmup=True)
+    return words, gw, states, kwarm
+
+
+def interleaved_decode(encoded, freq: torch.Tensor, cdf: torch.Tensor, active: np.ndarray):
+    """Decode interleaved_encode's output, one rans.decode_step_interleaved
+    sub-iteration at a time: freq / cdf (B, T, M, L) int64 full tables.
+    A lane stops pulling words after total - k symbols (tail packing).
+    Returns (symbols (B, T, M) int64, [(states, gptr, cnt) after each step])."""
+    words, n_words, states, k = encoded
+    B, T, m, _ = freq.shape
+    r = states.shape[1]
+    act = torch.from_numpy(np.asarray(active, bool))
+    stream = torch.zeros_like(words)
+    for b in range(B):
+        stream[b, :int(n_words[b])] = words[b, :int(n_words[b])].flip(0)
+    thresh = act.reshape(T, m // r, r).sum((0, 1)).long()[None] - k
+    gptr = torch.zeros(B, dtype=torch.long)
+    cnt = torch.zeros(B, r, dtype=torch.long)
+    syms = torch.zeros(B, T, m, dtype=torch.long)
+    after = []
+    for t in range(T):
+        for si in range(m // r):
+            sl = slice(si * r, (si + 1) * r)
+            syms[:, t, sl], states, gptr, cnt = trans.decode_step_interleaved(
+                states, gptr, stream, freq[:, t, sl], cdf[:, t, sl],
+                act[t, sl].expand(B, r), cnt, thresh)
+        after.append((states, gptr, cnt))
+    return syms, after
 
 
 def test_plain_k3_tables_unchanged():

@@ -29,7 +29,7 @@ from imgcomp_cvpr_tpu_torch.coding import planar_codec as tpcodec
 from imgcomp_cvpr_tpu_torch.coding import rans as trans
 from imgcomp_cvpr_tpu_torch.models import probclass as tpc
 from imgcomp_cvpr_tpu_torch.utils import config as tconfig
-from test_torch_coding import _folded_from_jax, _setup
+from test_torch_coding import _folded_from_jax, _setup, interleaved_decode, interleaved_encode
 from test_torch_prec import _flips, _jax_enc_tables
 
 SHAPE, L, B = (4, 6, 7), 6, 2
@@ -115,10 +115,10 @@ def test_quantize_cdf_of_nan_probs_matches_jax_kernel(L):
     np.testing.assert_array_equal(tc.numpy(), jc)
 
 
-def test_scan_codecs_and_jax_xla_impls_part_on_a_nan_column():
-    """An accepted difference (ROADMAP Queue 3): the port's scan codecs (id
-    7) take their tables from logits_to_cdf, which follows the JAX kernel;
-    the JAX XLA impls they twin take theirs from rans.quantize_cdf over
+def test_logits_to_cdf_and_jax_xla_softmax_cdf_part_on_a_nan_column():
+    """An accepted difference (ROADMAP Queue 1): the port's codecs take
+    their tables from logits_to_cdf, which follows the JAX kernel; the JAX
+    package's XLA impls take theirs from rans.quantize_cdf over
     jax.nn.softmax, whose argmax hands the deficit to the first NaN. Only
     non-finite weights reach it. A finite column gives both the same table."""
     nan = np.full((1, 3), np.nan, np.float32)
@@ -138,32 +138,31 @@ def test_scan_codecs_and_jax_xla_impls_part_on_a_nan_column():
 @pytest.mark.parametrize('x0', [1, trans.RANS_L])
 def test_rans_coders_take_columns_summing_to_L(x0):
     """Tables drawn from columns that sum to L (freq 1, start = symbol) among
-    ordinary ones: the native g++ runtime, the numpy reverse encoder, the
-    per-lane scalar encoder and JAX's vectorized encoder write the same
-    words, and the scalar decoder (slot = start for freq 1) recovers the
-    symbols."""
+    ordinary ones: the interleaved reverse sub-iterations (the plain
+    version of kernels 3 and 6) write JAX's encode_reverse_scan_interleaved
+    words, states and warmups, and the interleaved decode sub-iterations
+    (slot = start for freq 1) recover the symbols."""
     rng = np.random.RandomState(5)
     T, M = 80, 5
     logits = (rng.randn(T, M, L) * 3).astype(np.float32)
     logits[rng.rand(T, M) < 0.3, rng.randint(0, L)] = np.nan
-    f, c = (a.numpy() for a in ck.logits_to_cdf(torch.from_numpy(logits)))
+    f, c = ck.logits_to_cdf(torch.from_numpy(logits))
     assert (f.sum(-1) == L).sum() > 50 and (f.sum(-1) == trans.SCALE).sum() > 200
-    syms = rng.randint(0, L, (T, M))
-    fs = np.take_along_axis(f, syms[..., None], -1)[..., 0].astype(np.uint32)
-    ss = np.take_along_axis(c, syms[..., None], -1)[..., 0].astype(np.uint32)
+    syms = torch.from_numpy(rng.randint(0, L, (T, M, 1)))
+    fs = torch.gather(f.long(), -1, syms)[None, ..., 0]
+    ss = torch.gather(c.long(), -1, syms)[None, ..., 0]
     act = np.ones((T, M), bool)
-    ref = jrans.vectorized_encode(fs, ss, act, x0)
-    for native in (True, False):
-        got = trans.encode_reverse(fs, ss, act, x0, native=native)
-        for u, v in zip(got[0], ref[0], strict=True):
-            np.testing.assert_array_equal(u, v)
-        np.testing.assert_array_equal(got[1], ref[1])
-    for j in range(M):
-        words, state, k = trans.scalar_encode(syms[:, j], f[:, j], c[:, j], x0=x0)
-        np.testing.assert_array_equal(words, ref[0][j])
-        assert state == ref[1][j]
-        np.testing.assert_array_equal(trans.scalar_decode(words, state, f[:, j], c[:, j], k),
-                                      syms[:, j])
+    enc = interleaved_encode(fs, ss, act, x0)
+    words, n, st, k = enc
+    jw, jn, jst, jk = jrans.encode_reverse_scan_interleaved(
+        jnp.asarray(fs[0].numpy(), jnp.uint32), jnp.asarray(ss[0].numpy(), jnp.uint32),
+        jnp.asarray(act), x0=x0)
+    assert int(n[0]) == int(jn)
+    np.testing.assert_array_equal(words[0].numpy(), np.asarray(jw).astype(np.int64))
+    np.testing.assert_array_equal(st[0].numpy(), np.asarray(jst).astype(np.int64))
+    np.testing.assert_array_equal(k[0].numpy(), np.asarray(jk))
+    got, _ = interleaved_decode(enc, f.long()[None], c.long()[None], act)
+    np.testing.assert_array_equal(got[0].numpy(), syms[..., 0].numpy())
 
 
 # ---------------------------------------------------------------------------

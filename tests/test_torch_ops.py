@@ -1,8 +1,11 @@
-"""Port vs JAX package: quantizer and TF-'SAME' convolutions (CPU).
+"""Port vs JAX package: quantizer and TF-'SAME' convolutions (CPU); and
+the binding of the kernels' C entries (build.entry) on a stand-in library.
 
 Inputs are made with numpy from a seed and handed to both packages; JAX
 runs on the CPU, its Pallas quantizer in interpret mode.
 """
+
+import ctypes
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +17,7 @@ from imgcomp_cvpr_tpu.ops import tf_compat as jtf
 from imgcomp_cvpr_tpu.ops.pallas import quantize as jpq
 from imgcomp_cvpr_tpu_torch.models import quantizer as tquant
 from imgcomp_cvpr_tpu_torch.ops import tf_compat as ttf
+from imgcomp_cvpr_tpu_torch.ops.kernels import build
 from imgcomp_cvpr_tpu_torch.ops.kernels import quantize as tqk
 
 
@@ -40,6 +44,43 @@ def test_quantize_wrapper_cpu_uses_plain():
         assert torch.equal(u, v)
     with pytest.raises(TypeError):
         tqk.quantize_fwd(x.double(), c)
+
+
+@pytest.fixture
+def stand_in_library(monkeypatch):
+    """build.load handing out the process's own C library (libc) in place of
+    a kernel library, counting its calls, with no entry bound yet."""
+    loads = []
+
+    def load(name):
+        loads.append(name)
+        return ctypes.CDLL(None)
+
+    monkeypatch.setattr(build, 'load', load)
+    monkeypatch.setattr(build, '_entries', {})
+    return loads
+
+
+def test_build_entry_binds_a_symbol_once(stand_in_library):
+    """build.entry binds a C entry on first use, with its argument types and
+    an int return, and hands the same function out after that."""
+    fn = build.entry('stand_in', 'abs', (ctypes.c_int,))
+    assert fn.argtypes == (ctypes.c_int,) and fn.restype is ctypes.c_int
+    assert fn(-7) == 7
+    assert build.entry('stand_in', 'abs', [ctypes.c_int]) is fn
+    assert stand_in_library == ['stand_in']
+    build.entry('stand_in', 'labs', (ctypes.c_long,))
+    assert stand_in_library == ['stand_in', 'stand_in']
+
+
+def test_build_entry_refuses_other_argtypes(stand_in_library):
+    """A symbol asked for again with other argument types raises, and keeps
+    the types it was bound with."""
+    fn = build.entry('stand_in', 'abs', (ctypes.c_int,))
+    with pytest.raises(TypeError, match='stand_in.abs'):
+        build.entry('stand_in', 'abs', (ctypes.c_longlong,))
+    assert fn.argtypes == (ctypes.c_int,)
+    assert stand_in_library == ['stand_in']
 
 
 @pytest.mark.parametrize('size,k,s', [(7, 3, 1), (7, 5, 2), (8, 5, 2), (9, 3, 2),

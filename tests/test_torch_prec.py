@@ -297,29 +297,28 @@ def test_fold_cache_keys_on_precision(k3_model):
     assert torch.equal(f2.k2, ck.round_operand(f0.k2, 'e4m3'))
 
 
-def test_planar_and_scan_streams_refuse_nonzero_precision():
-    """Impl ids 6 (planar) and 7 (scan codecs) write precision 0 only, as
-    the JAX package's planar and XLA codecs do: their streams with a
-    nonzero prec byte are refused with a clear error, and the codecs refuse
-    another precision."""
+def test_planar_streams_refuse_nonzero_precision():
+    """Impl id 6 (planar) writes precision 0 only, as the JAX package's
+    planar codec does: its streams with a nonzero prec byte are refused
+    with a clear error, and the codec refuses another precision."""
     L = 6
     centers = np.linspace(-2.0, 2.0, L).astype(np.float32)
-    for K, impl, shape in ((5, 'cuda_planar', (4, 8, 8)), (3, 'direct', (3, 5, 5))):
-        cfg, _ = tconfig.parse_spec('cvpr/res_shallow', 'pc')
-        cfg = cfg.replace(kernel_size=K, arch_param__k=8)
-        pc = tpc.init_params(tpc.ProbClassifier(cfg, L, device='cpu'), seed=1)
-        syms = np.random.RandomState(1).randint(0, L, (1,) + shape).astype(np.int8)
-        lc = tcodec.LatentCodec(pc, cfg, device='cpu', impl=impl)
-        stream = lc.encode_batch(syms, centers)[0].bitstream
-        assert tcodec.stream_prec(stream) == 0
-        assert tcodec.stream_impl_id(stream) == tcodec.IMPL_IDS[impl]
-        for p in (1, 2):
-            bad = bytearray(stream)
-            bad[2] = (bad[2] & ~0x3) | p
-            with pytest.raises(ValueError, match=f'container precision {p}'):
-                lc.decode_batch([bytes(bad)], centers)
-        with pytest.raises(ValueError, match='precision 0'):
-            tcodec.LatentCodec(pc, cfg, device='cpu', impl=impl, prec='bf16')
+    impl, shape = 'cuda_planar', (4, 8, 8)
+    cfg, _ = tconfig.parse_spec('cvpr/res_shallow', 'pc')
+    cfg = cfg.replace(kernel_size=5, arch_param__k=8)
+    pc = tpc.init_params(tpc.ProbClassifier(cfg, L, device='cpu'), seed=1)
+    syms = np.random.RandomState(1).randint(0, L, (1,) + shape).astype(np.int8)
+    lc = tcodec.LatentCodec(pc, cfg, device='cpu', impl=impl)
+    stream = lc.encode_batch(syms, centers)[0].bitstream
+    assert tcodec.stream_prec(stream) == 0
+    assert tcodec.stream_impl_id(stream) == tcodec.IMPL_IDS[impl]
+    for p in (1, 2):
+        bad = bytearray(stream)
+        bad[2] = (bad[2] & ~0x3) | p
+        with pytest.raises(ValueError, match=f'container precision {p}'):
+            lc.decode_batch([bytes(bad)], centers)
+    with pytest.raises(ValueError, match='precision 0'):
+        tcodec.LatentCodec(pc, cfg, device='cpu', impl=impl, prec='bf16')
 
 
 def test_tools_honour_env_precision(tmp_path, monkeypatch):

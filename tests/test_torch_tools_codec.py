@@ -203,25 +203,36 @@ def test_profile_codec_report():
 _SMALL = ['--shape', '3', '4', '5', '--batch', '2']
 
 
-def test_ab_streams_dump_compare_cross(tmp_path, capsys):
+@pytest.mark.parametrize('batch', [1, 2])
+@pytest.mark.parametrize('impl,k', [('cuda', '3'), ('cuda_planar', '5')])
+def test_ab_streams_dump_compare_cross(tmp_path, capsys, impl, k, batch):
+    small = ['--shape', '3', '4', '5', '--batch', str(batch), '--impl', impl, '--k', k]
     a, b = str(tmp_path / 'a.pkl'), str(tmp_path / 'b.pkl')
     for out in (a, b):
-        assert tab.main(['--cpu', 'dump'] + _SMALL + ['--out', out]) == 0
+        assert tab.main(['--cpu', 'dump'] + small + ['--out', out]) == 0
     assert tab.main(['--cpu', 'compare', a, b]) == 0
     assert tab.main(['--cpu', 'compare', a, b, '--payload-only']) == 0
     assert tab.main(['--cpu', 'cross', a]) == 0
     d = pickle.load(open(a, 'rb'))
-    assert d['impl'] == 'cuda' and sorted(d['cases']) == [1]
+    assert d['impl'] == impl and sorted(d['cases']) == [1]
     assert d['kernel_libs_loaded'] == {} and 'rans_reverse' in d['kernel_libs']
-    s = bytearray(d['cases'][1]['streams'][1])
+    s = bytearray(d['cases'][1]['streams'][batch - 1])
     s[-1] ^= 0x01
-    d['cases'][1]['streams'][1] = bytes(s)
+    d['cases'][1]['streams'][batch - 1] = bytes(s)
     pickle.dump(d, open(b, 'wb'))
     capsys.readouterr()
     assert tab.main(['--cpu', 'compare', a, b]) == 1
-    assert 'STREAM MISMATCH bsub=1 image=1' in capsys.readouterr().out
+    assert f'STREAM MISMATCH bsub=1 image={batch - 1}' in capsys.readouterr().out
     with pytest.raises(ValueError, match='bsub 1 only'):
-        tab.main(['--cpu', 'dump'] + _SMALL + ['--bsubs', '1', '2', '--out', a])
+        tab.main(['--cpu', 'dump'] + small + ['--bsubs', '1', '2', '--out', a])
+
+
+def test_ab_streams_takes_only_the_served_codecs(capsys):
+    """--impl is cuda or cuda_planar: the retired scan codecs' names are
+    refused as argparse refuses any unknown choice."""
+    with pytest.raises(SystemExit):
+        tab.main(['--cpu', 'dump'] + _SMALL + ['--impl', 'direct', '--out', 'unused.pkl'])
+    assert "invalid choice: 'direct'" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize('impl,k', [('cuda', '3'), ('cuda_planar', '5')])
