@@ -27,7 +27,9 @@ Phases, one line each:
      encode is held against its plain version and against its own
      teacher-forced scan on all 32 planes, its scan against the scan's
      plain version on one plane (plane 2, whose bias rows come from two
-     coded planes: that Python loop over 824 steps takes ~20 s a plane).
+     coded planes: that Python loop over 824 steps takes ~20 s a plane),
+     the scan's ring path (the default here) timed and profiled beside its
+     staged path (FORCE_STAGED) on that plane.
      The bias-row kernel (csrc/bias_rows.cu) on the activations of that
      encode: its encode layout (4 launches) and decode layout (32) equal
      bit for bit, B = 1 equal to B = 16, the generic instance equal to the
@@ -449,11 +451,13 @@ def kernel2_only(root, profile=False):
                                                    device=dev), seed=0)
     k5 = kernel5_times(pc5, pc5_config, syms.reshape((BATCH,) + shape),
                        ae.encoder.centers.detach())
+    staged = (f'; the staged path {k5["staged_ms"]:.3f} ms, clocks {k5["staged_clocks"]}'
+              if 'staged_ms' in k5 else '')
     print(f'[k5] 5a encode {k5["encode_ms"]:.3f} ms a batch ({k5["encode_ms"] / 5:.3f} a '
           f'launch: {[round(t, 3) for t in k5["launch_ms"]]}), 5b decode {k5["decode_ms"]:.3f} '
-          f'ms a plane launch (clocks a step, levels 1-4 and CDF + rANS: '
-          f'{k5["decode_clocks"]}), tables sha256 {k5["tables"][:16]}, streams sha256 '
-          f'{k5["streams"][:16]}', flush=True)
+          f'ms a plane launch on the {k5["decode_path"]} path (clocks a step, levels 1-4 and '
+          f'CDF + rANS: {k5["decode_clocks"]}){staged}, tables sha256 {k5["tables"][:16]}, '
+          f'streams sha256 {k5["streams"][:16]}', flush=True)
     print(json.dumps({'root': root or '.', 'device': torch.cuda.get_device_name(0),
                       'kernel2': out, 'kernel5': k5}), flush=True)
     return 0
@@ -465,11 +469,13 @@ def kernel5_times(pc5, pc5_config, syms, centers, plane=2):
     tables, then the scan decode of every plane up to ``plane`` with plane
     ``plane``'s launch timed (5b) and its clocks a step by phase (the
     kernel's ``prof``), the decode held to the symbols; sha256s of the
-    tables and of kernel 6's streams."""
+    tables and of kernel 6's streams. Where the scan took its ring path, the
+    staged path (FORCE_STAGED) is timed on the same plane too."""
     import hashlib
     import torch
     from imgcomp_cvpr_tpu_torch.coding import planar, planar_codec
     from imgcomp_cvpr_tpu_torch.coding import planar_kernel as plk
+    from imgcomp_cvpr_tpu_torch.ops.kernels import build
     dev = syms.device
     B, C, H, W = syms.shape
     shape = (C, H, W)
@@ -494,15 +500,30 @@ def kernel5_times(pc5, pc5_config, syms, centers, plane=2):
             raise AssertionError(f'kernel 5: the scan did not recover plane {d}')
         states, gptr = out.states, out.gptr
         coder._push(hist, out)
+    rings = build.LAUNCHES.get('plane_ring', 0)
     dec_ms = cuda_ms(lambda: plk.plane_forward(plk.MODE_DECODE, fold.top, shape, coder.K,
                                                bias, **args), 3)
-    prof = torch.zeros(B, 5, dtype=torch.int64, device=dev)
-    plk.plane_forward(plk.MODE_DECODE, fold.top, shape, coder.K, bias, prof=prof, **args)
-    clocks = (prof.double().mean(0) / sched.T2).round().long().tolist()
+    path = 'ring' if build.LAUNCHES.get('plane_ring', 0) > rings else 'staged'
+    clocks = decode_clocks(plk, fold, shape, coder.K, bias, args, sched.T2)
     digest = {key: hashlib.sha256(b''.join(t.cpu().numpy().tobytes() for t in ts)).hexdigest()
               for key, ts in (('tables', (fsel, ssel)), ('streams', (w, n_w, st, k)))}
-    return dict(encode_ms=sum(launch_ms), launch_ms=launch_ms, decode_ms=dec_ms,
-                decode_clocks=clocks, **digest)
+    out = dict(encode_ms=sum(launch_ms), launch_ms=launch_ms, decode_ms=dec_ms,
+               decode_path=path, decode_clocks=clocks, **digest)
+    if path == 'ring':      # the staged path on the same plane, in the same process
+        staged = dict(args, force=plk.FORCE_STAGED)
+        out['staged_ms'] = cuda_ms(lambda: plk.plane_forward(
+            plk.MODE_DECODE, fold.top, shape, coder.K, bias, **staged), 3)
+        out['staged_clocks'] = decode_clocks(plk, fold, shape, coder.K, bias, staged, sched.T2)
+    return out
+
+
+def decode_clocks(plk, fold, shape, K, bias, args, steps):
+    """Kernel 5's scan clocks a step (the kernel's ``prof``, mean over the
+    images): levels 1-4, each with its barrier, and CDF + rANS."""
+    import torch
+    prof = torch.zeros(bias[0].shape[0], 5, dtype=torch.int64, device=bias[0].device)
+    plk.plane_forward(plk.MODE_DECODE, fold.top, shape, K, bias, prof=prof, **args)
+    return (prof.double().mean(0) / steps).round().long().tolist()
 
 
 def ptxas_summary(log):
@@ -668,11 +689,13 @@ def planar_kernels(dev, syms, centers, pc5, pc5_config, rows, sm_mhz):
     """Phase 3 for kernels 5 and 6 at the main path's shapes (B=16, latent
     (32, 64, 96), K=5). The layer-parallel encode is held against its plain
     version and against the teacher-forced scan on every plane; the scan is
-    held against its own plain version on plane P = 2 in both modes. Adds
-    rows to ``rows``."""
+    held against its own plain version on plane P = 2 in both modes, and
+    its ring path timed against its staged path there. Adds rows to
+    ``rows``."""
     import torch
     from imgcomp_cvpr_tpu_torch.coding import planar, planar_codec
     from imgcomp_cvpr_tpu_torch.coding import planar_kernel as plk
+    from imgcomp_cvpr_tpu_torch.ops.kernels import build
     P = 2
     B, C, H, W = syms.shape
     shape = (C, H, W)
@@ -777,6 +800,7 @@ def planar_kernels(dev, syms, centers, pc5, pc5_config, rows, sm_mhz):
     states, gptr = st_k, torch.zeros(B, dtype=torch.int32, device=dev)
     hist = coder._history(fold, sched, B)
     dec = torch.empty_like(syms)
+    rings = build.LAUNCHES['plane_ring']
     for d in range(C):
         bias = coder.bias_rows(fold, hist)
         args = dict(streams=streams, states=states, gptr=gptr,
@@ -788,6 +812,7 @@ def planar_kernels(dev, syms, centers, pc5, pc5_config, rows, sm_mhz):
         coder._push(hist, out)
     if not torch.equal(dec, syms):
         raise AssertionError('plane forward decode: kernel did not recover the symbols')
+    rings = build.LAUNCHES['plane_ring'] - rings
     dplain_ms, dp = host_ms(lambda: plk.plane_forward_plain(
         plk.MODE_DECODE, fold.top, shape, K, bias_d, **args_p))
     if not (torch.equal(dp.syms, true_p) and torch.equal(dp.states, out_d.states)
@@ -804,14 +829,17 @@ def planar_kernels(dev, syms, centers, pc5, pc5_config, rows, sm_mhz):
         bound=bound(io + 4 * B * H * W + words_p + 16 * B * planar.R, flops),
         library_ms=None)
     adds = len(sched.taps[0]) + sum(len(tp) for tp in sched.taps[1:]) * kf
-    prof = torch.zeros(B, 5, dtype=torch.int64, device=dev)
-    plk.plane_forward(plk.MODE_DECODE, fold.top, shape, K, bias_d, prof=prof, **args_p)
-    clocks = (prof.double().mean(0) / sched.T2).round().long().tolist()
+    clocks = decode_clocks(plk, fold, shape, K, bias_d, args_p, sched.T2)
+    staged = dict(args_p, force=plk.FORCE_STAGED)
+    staged_ms = cuda_ms(lambda: plk.plane_forward(plk.MODE_DECODE, fold.top, shape, K,
+                                                  bias_d, **staged), 3)
+    staged_clocks = decode_clocks(plk, fold, shape, K, bias_d, staged, sched.T2)
     print(f'[3 plane forward decode] kernel 5 recovers all {C} planes from kernel '
           f'6\'s streams (tail-packed, per-plane thresholds); the plain version '
           f'decodes plane {P} from the same state to the same symbols, state and '
-          f'read pointer; {rows["plane_forward_decode"]["ms"]:.3f} ms a plane launch; '
-          f'clocks a step, mean over the images (levels 1-4 each with its barrier, CDF + '
+          f'read pointer; {rows["plane_forward_decode"]["ms"]:.3f} ms a plane launch '
+          f'({rings} of the {C} scans on the ring path; the staged path {staged_ms:.3f} ms, '
+          f'clocks {staged_clocks}); clocks a step, mean over the images (levels 1-4 each with its barrier, CDF + '
           f'rANS): {clocks}; '
           f'chain floor {chain_floor_ms(adds, sched.T2, sm_mhz):.3f} ms a launch ({adds} '
           f'dependent adds a step x {sched.T2} steps x {FADD_LATENCY_CLOCKS} clocks at '

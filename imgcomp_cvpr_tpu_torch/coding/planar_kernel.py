@@ -46,6 +46,7 @@ R = planar.R
 MAX_TAPS = 32     # top-slice taps per layer the kernel takes (K <= 7)
 MAX_L = ck.MAX_L
 MODE_DECODE, MODE_ENCODE = ck.MODE_DECODE, ck.MODE_ENCODE
+FORCE_STAGED = 4  # the scan's staged path even where the rings fit (tests, chip_smoke.py)
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +211,7 @@ def plane_forward_plain(mode: int, weights: PlaneWeights,
 class _PlaneArgs(ctypes.Structure):
     _fields_ = ([(k, ctypes.c_int) for k in (
         'mode', 'B', 'H', 'W', 'K', 'BH', 'CTR', 'T2', 'kf', 'L', 'cap', 'threads',
-        'level', 'force')]
+        'level', 'force', 'rslot')]
                 + [('nt', ctypes.c_int * 4),
                    ('tdy', (ctypes.c_int * MAX_TAPS) * 4),
                    ('tdx', (ctypes.c_int * MAX_TAPS) * 4)]
@@ -253,6 +254,81 @@ def _plane_args(weights: PlaneWeights, sched: planar.PlanarSchedule, pairs: int,
     return a
 
 
+# ---------------------------------------------------------------------------
+# Kernel 5's scan: the ring path's geometry and where it runs
+# ---------------------------------------------------------------------------
+
+class RingGeometry(NamedTuple):
+    """The scan's rings (csrc/plane_forward.cu): levels 0-3 each keep their
+    last ``depth`` = CTR + 1 diagonals, ``slots`` cells a diagonal (the
+    kernel's PlaneArgs::rslot), cell (h, diagonal v) in ring_slot(v, h)."""
+    depth: int
+    slots: int
+
+    def slot(self, v, h):
+        """The slot of cell (h, diagonal v) of a level (ints or arrays)."""
+        return (v % self.depth) * self.slots + h % self.slots
+
+
+def diagonal_cells(sched: planar.PlanarSchedule, level: int) -> int:
+    """The most cells a diagonal of level ``level`` has (its grid's height,
+    or one cell in every BH columns)."""
+    Hl, Wl = sched.grids[level]
+    return min(Hl, -(-Wl // sched.BH))
+
+
+def ring_geometry(sched: planar.PlanarSchedule) -> RingGeometry:
+    """A slot for every cell of a diagonal of levels 0-3, and more than the
+    K // 2 rows below a cell that its taps reach."""
+    return RingGeometry(sched.CTR + 1, max([sched.K // 2 + 1]
+                                           + [diagonal_cells(sched, l) for l in range(4)]))
+
+
+def ring_bytes(geom: RingGeometry, kf: int, n_params: int) -> int:
+    """The ring path's dynamic shared memory: the packed weights, then the
+    rings of level 0 (a float a cell) and levels 1-3 (kf floats), each start
+    on a float4."""
+    return 4 * (ck._round_up(n_params, 4) + ck._round_up(geom.depth * geom.slots, 4)
+                + 3 * geom.depth * geom.slots * kf)
+
+
+def scan_threads(sched: planar.PlanarSchedule, kf: int) -> int:
+    """The scan's block: a thread for each (cell, channel) of the widest band
+    a step has, within 64..512."""
+    band = max(-(-g[1] // sched.BH) for g in sched.grids[1:])
+    return min(512, max(64, ck._round_up(min(band, R) * kf, 32)))
+
+
+def ring_fits(sched: planar.PlanarSchedule, kf: int, L: int, n_params: int, room: int,
+              force: int = 0) -> bool:
+    """Whether kernel 5's scan takes the ring path: the compile-time
+    instance (K = 5, kf = 24, L = 6, 12 / 13 taps) with its weights in shared
+    memory, a thread for every (cell, channel) of a band, and the weights and
+    rings within ``room`` bytes (plane_ring_room: the card's opt-in limit less
+    the kernel's static shared memory). ``force`` (any bit) takes the staged
+    path."""
+    if (force or (sched.K, kf, L) != (5, 24, 6)
+            or [len(tp) for tp in sched.taps] != [12, 13, 13, 13]):
+        return False
+    threads = scan_threads(sched, kf)
+    if any(diagonal_cells(sched, l) * (L if l == 4 else kf) > threads for l in range(1, 5)):
+        return False
+    return ring_bytes(ring_geometry(sched), kf, n_params) <= room
+
+
+@functools.lru_cache(maxsize=32)
+def _scan_rslot(latent_shape, K: int, kf: int, L: int, n_params: int, index: int,
+                force: int) -> int:
+    """PlaneArgs::rslot of a scan on card ``index``: the ring path's slots, or
+    0 (the staged path)."""
+    with torch.cuda.device(index):
+        room = build.entry('plane_forward', 'plane_ring_room', ())()
+    if room < 0:
+        raise RuntimeError(f'plane_ring_room: cudaError {-room}')
+    sched = planar.build_planar_schedule(latent_shape, K)
+    return ring_geometry(sched).slots if ring_fits(sched, kf, L, n_params, room, force) else 0
+
+
 def _launch(entry: str, a: '_PlaneArgs', dev) -> None:
     fn = build.entry('plane_forward', entry, _PLANE_ARGTYPES)
     with torch.cuda.device(dev):
@@ -270,7 +346,9 @@ def plane_forward(mode: int, weights: PlaneWeights,
     of the layer-parallel encode (level_forward + plane_tables). ``prof``
     (B, 5) int64 on the device receives thread 0's clocks in levels 1-4 and
     in the CDF + rANS part, summed over the steps. ``force`` as in
-    cuda_kernel.wavefront_forward (the same bits)."""
+    cuda_kernel.wavefront_forward (the same bits), or FORCE_STAGED. The scan
+    takes the ring path where ring_fits (counted by
+    ``build.LAUNCHES['plane_ring']``), else the staged path: the same bits."""
     if mode not in (MODE_DECODE, MODE_ENCODE):
         raise ValueError(f'mode must be 0 (decode) or 1 (encode), got {mode}')
     dev = weights.w1.device
@@ -308,10 +386,10 @@ def plane_forward(mode: int, weights: PlaneWeights,
     acts = [torch.empty(B, g[0], g[1], kf, dtype=f32, device=dev)
             for g in sched.grids[1:4]]
     qp = torch.empty(B, *sched.grids[0], dtype=f32, device=dev)
-    # One thread per (cell, channel) of the widest band a step has.
-    band = max(-(-g[1] // sched.BH) for g in sched.grids[1:])
-    threads = min(512, max(64, ck._round_up(min(band, R) * kf, 32)))
-    a = _plane_args(weights, sched, B, mode=mode, cap=cap, threads=threads, force=force,
+    rslot = _scan_rslot(sched.latent_shape, K, kf, L, sum(w.numel() for w in weights),
+                        dev.index, force)
+    a = _plane_args(weights, sched, B, mode=mode, cap=cap, threads=scan_threads(sched, kf),
+                    force=force, rslot=rslot,
                     bias1=bias[0], bias2=bias[1], bias3=bias[2], bias4=bias[3],
                     act1=acts[0], act2=acts[1], act3=acts[2], qplane=qp,
                     true_plane=true_plane, fsel=fsel, ssel=ssel, streams=streams,
@@ -321,6 +399,8 @@ def plane_forward(mode: int, weights: PlaneWeights,
     _launch('plane_forward', a, dev)
     build.LAUNCHES['plane_forward_encode_scan' if mode == MODE_ENCODE
                    else 'plane_forward_decode'] += 1
+    if rslot:
+        build.LAUNCHES['plane_ring'] += 1
     acts = tuple(acts)
     if mode == MODE_ENCODE:
         return PlaneOut(acts, qp, fsel=fsel, ssel=ssel)

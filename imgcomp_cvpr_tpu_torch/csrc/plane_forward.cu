@@ -34,26 +34,51 @@
 // variant). A step has at most ~13 cells a level, 312 (cell, channel) work
 // items: that does not feed a cluster, and what a step costs is latency. So
 // the block has just the threads of one band (a.threads, from the wrapper),
-// the block fetches the tap rows of a phase's cells into shared memory in one
-// sweep (stage_rows of layer_sum.cuh: one memory latency a phase, not one a
-// tap; one block per image, so plain loads are coherent), a thread owns one
-// (cell, channel) and starts a whole tap's 24 loads and multiplies before its
-// 24 dependent adds (widths at compile time, x as float4; 2 or 4 channels a
-// thread were measured and were slower: fewer warps, longer serial chains), the
-// CDF is computed with L at compile time in registers, and the stream words
-// come through a shared-memory window (rans_window.cuh). Per step: level 1 |
-// barrier | 2 | barrier | 3 (+ skip) | barrier | 4 -> logits in shared
-// memory | barrier | warp 0: CDF, slot search, state update, renorm pulls
-// ranked with __ballot_sync/__popc, `cnt < thr` suppression, exactly like
-// rans.decode_step_interleaved; q write | barrier. Each barrier stands on
-// the recurrence (the centre tap of levels 2-4 and level 3's skip read cells
-// written earlier in the same step).
+// a thread owns one (cell, channel) and starts a whole tap's 24 loads and
+// multiplies before its 24 dependent adds (widths at compile time, x as
+// float4; 2 or 4 channels a thread were measured and were slower: fewer
+// warps, longer serial chains), the CDF is computed with L at compile time in
+// registers, and the stream words come through a shared-memory window
+// (rans_window.cuh). Per step: level 1 | barrier | 2 | barrier | 3 (+ skip) |
+// barrier | 4 -> logits in shared memory | barrier | warp 0: CDF, slot
+// search, state update, renorm pulls ranked with __ballot_sync/__popc, `cnt <
+// thr` suppression, exactly like rans.decode_step_interleaved; q write |
+// barrier. Each barrier stands on the recurrence (the centre tap of levels
+// 2-4 and level 3's skip read cells written earlier in the same step).
+//
+// Where a step's operands come from. The ring path (RING; K = 5, kf = 24)
+// reads nothing from device memory inside the recurrence. A tap of a level-l
+// cell reads level l-1 on one of its last CTR + 1 = 21 diagonals (level 3's
+// skip and the centre taps: on the current one), so each of levels 0 (the
+// padded q plane), 1, 2 and 3 keeps its last 21 diagonals in a ring in
+// shared memory, cell (h, diagonal v) in slot (v % 21) * rslot + h % rslot
+// (rslot >= the most cells a diagonal has; coding/planar_kernel.py::
+// ring_geometry). A phase computes from the rings, writes its cells to its
+// ring, and stores them to the level's grid in device memory too (PlaneOut
+// returns them and the next plane's bias rows read them; nothing in the step
+// waits for those stores); warp 0 writes each symbol's centre into the q
+// ring; the step's first phase puts the pad value back into the q ring's row
+// of the step's diagonal (the row of the diagonal 21 back, which no phase of
+// this step reads). Each thread loads the bias-row values of its (cell,
+// channel) of all four levels a step ahead, into registers, in the level-4
+// phase, where most warps have no cell. Kodak latent (64 x 96): rslot 13, 80
+// KB of rings beside the 68.6 KB of weights. Where the
+// rings do not fit under the opt-in limit, or a band has more (cell, channel)
+// items than the block has threads (a wide latent: ~29 cells a diagonal at
+// 1080p), the wrapper passes rslot = 0 and the staged path runs: the block
+// fetches the tap rows of a phase's cells from the grids in device memory
+// into shared memory in one sweep (stage_rows of layer_sum.cuh: one memory
+// latency a phase, not one a tap; one block per image, so plain loads are
+// coherent), and reads each bias row where it is used. Both paths call
+// cell_sum with the same widths (the ring path keeps four of level 1's
+// one-float tap rows in flight, the staged path one): every sum keeps its
+// (tap, channel) order, and the bits are the same.
 //
 // Template instances: <KF = 24, NL = 6, N1 = 12, NO = 13> (K = 5 with the
-// shipped widths: the `pc base` context model) and <0, 0, 0, 0>, the generic
-// instance for any other K or width (one (cell, channel) a thread, run-time
-// loops, two loads per multiply: the first version's inner loop, several
-// times slower).
+// shipped widths: the `pc base` context model; the scan's ring path is one
+// more instance of it) and <0, 0, 0, 0>, the generic instance for any other K
+// or width (one (cell, channel) a thread, run-time loops, two loads per
+// multiply: the first version's inner loop, several times slower).
 //
 // Where the weights live (WG), as in kernel 2: in a block's dynamic shared
 // memory while they (and the scan's staged tap rows) fit within the card's
@@ -61,7 +86,8 @@
 // 5, L = 6), else all of them in device memory, read through L1 / L2 (kf =
 // 64: 439 KB). Only where an operand comes from changes, not the order of any
 // sum. PlaneArgs::force asks for the device-memory placement or the generic
-// instance where they are not needed (tests and chip_smoke.py).
+// instance where they are not needed (tests and chip_smoke.py); either also
+// keeps the scan off the ring path, which holds the weights in shared memory.
 //
 // Bound on the H100: operations; the top-slice taps of one Kodak-size plane
 // (64 x 96, K=5, kf=24) are ~0.45 GFLOP per image in f32 (chip_smoke.py
@@ -88,6 +114,7 @@
 struct PlaneArgs {
   int mode, B, H, W, K, BH, CTR, T2, kf, L, cap, threads, level;
   int force;         // FORCE_WDEV | FORCE_GENERIC, or 0: the host's own choice
+  int rslot;         // scan: ring slots a diagonal (the ring path), or 0 (staged)
   int nt[4];
   int tdy[4][MAX_TAPS];
   int tdx[4][MAX_TAPS];
@@ -362,7 +389,78 @@ __device__ __forceinline__ void level_band(const Level& lv, int v, int BH, float
   }
 }
 
-template <int KF, int NL, int N1, int NO, bool WG>
+// The ring path's geometry, at compile time: K = 5 (BH = 9, CTR = 20); a
+// ring keeps RING_D = CTR + 1 diagonals. Tap k of a K = 5 mask is (dy, dx) =
+// (k / 5, k % 5) (the host checks), on diagonal v + BH dy + dx of the level
+// below; level 3's skip is level-1 cell (h + 4, w + 4), on diagonal v + 40.
+#define RING_K 5
+#define RING_BH 9
+#define RING_CTR 20
+#define RING_D (RING_CTR + 1)
+
+// The rings' floats: level 0 (one float a cell, padded to a float4), levels 1-3.
+static int ring_floats(int rslot, int kf) {
+  return (RING_D * rslot + 3) / 4 * 4 + 3 * RING_D * rslot * kf;
+}
+
+// Cell (h, diagonal v)'s slot in a ring of rslot cells a diagonal.
+__device__ __forceinline__ int ring_slot(int v, int h, int ns) {
+  return (v % RING_D) * ns + h % ns;
+}
+
+// One thread's cell of each level at one step (h < 0: the step's diagonal of
+// that level has no cell for it) and the cell's bias-row value.
+struct RingWork {
+  int h[4];
+  float bias[4];
+};
+
+// A thread's cells of step t, with their bias-row values: it owns (cell,
+// channel) (tid / KF, tid % KF) of a band in levels 1-3 and (tid / NL, tid %
+// NL) in level 4. Called a step ahead, so the loads are in flight while the
+// step before runs; a thread with no cell loads the grid's first value,
+// unused, so that no branch stands around the loads.
+template <int KF, int NL>
+__device__ __forceinline__ RingWork ring_work(const Level (&lv)[4], int t) {
+  RingWork r;
+#pragma unroll
+  for (int l = 0; l < 4; ++l) {
+    const int co = l < 3 ? KF : NL;
+    const int v = t - (l + 1) * RING_CTR;
+    const int h = band_lo(v, lv[l].Wl, RING_BH) + (int)threadIdx.x / co;
+    const bool on = v >= 0 && h <= band_hi(v, lv[l].Hl, RING_BH);
+    r.h[l] = on ? h : -1;
+    const int i = on ? (h * lv[l].Wl + v - RING_BH * h) * co + (int)threadIdx.x % co : 0;
+    r.bias[l] = __ldg(lv[l].bias + i);
+  }
+  return r;
+}
+
+// The top-slice sum of channel ch of the level cell (h, diagonal v), its tap
+// rows read from `src`, the ring of the level below (CIN floats a cell, ns
+// slots a diagonal): cell_sum as the staged path calls it, with DD taps' rows
+// in flight (it sets when a row is read, not the order of the sum).
+template <int CIN, int COUT, int NT, int DD = 1>
+__device__ __forceinline__ float ring_sum(const float* w, int ch, const float* src, int ns,
+                                          int v, int h) {
+  const int rv = v % RING_D, hc = h % ns;
+  float acc[1][1];
+  cell_sum<CIN, COUT, 1, NT, 1, DD, false>(
+      acc,
+      [&](int, int k) {
+        const int dy = k / RING_K, dx = k - RING_K * dy;
+        int r = rv + RING_BH * dy + dx;
+        r = r >= RING_D ? r - RING_D : r;
+        int c = hc + dy;                    // dy <= 2 < ns
+        c = c >= ns ? c - ns : c;
+        return src + (r * ns + c) * CIN;
+      },
+      w, ch);
+  return acc[0][0];
+}
+
+// RING (KF > 0, !WG): the ring path, a.rslot slots a diagonal.
+template <int KF, int NL, int N1, int NO, bool WG, bool RING>
 __global__ void __launch_bounds__(SCAN_MAX_THREADS) plane_kernel(PlaneArgs a) {
   extern __shared__ __align__(16) float sm[];
   __shared__ float lg[R * MAX_L];
@@ -370,7 +468,8 @@ __global__ void __launch_bounds__(SCAN_MAX_THREADS) plane_kernel(PlaneArgs a) {
   const int b = blockIdx.x, L = NL ? NL : a.L, BH = a.BH;
   const int reach = 4 * (a.K / 2), W0 = a.W + 2 * reach, H0 = a.H + 2 * reach;
   const Weights p = load_weights<WG>(sm, a);
-  float* xs = sm + (WG ? 0 : (params_size(a.nt, a.kf, a.L) + 3) & ~3);   // staged tap rows
+  // Behind the weights: the staged tap rows, or the ring path's rings.
+  float* xs = sm + (WG ? 0 : (params_size(a.nt, a.kf, a.L) + 3) & ~3);
   const int HW = a.H * a.W;
   float* q = a.qplane + (size_t)b * H0 * W0;
   const float pad = a.params[params_size(a.nt, a.kf, a.L) - 1 - a.L];
@@ -378,6 +477,11 @@ __global__ void __launch_bounds__(SCAN_MAX_THREADS) plane_kernel(PlaneArgs a) {
   __syncthreads();
   const Level lv1 = make_level(a, p, 1, b), lv2 = make_level(a, p, 2, b);
   const Level lv3 = make_level(a, p, 3, b), lv4 = make_level(a, p, 4, b);
+  const int ns = a.rslot;    // the rings of levels 0-3
+  float* const ring0 = xs;
+  float* const ring1 = ring0 + (RING_D * ns + 3) / 4 * 4;
+  float* const ring2 = ring1 + RING_D * ns * KF;
+  float* const ring3 = ring2 + RING_D * ns * KF;
 
   const int lane = threadIdx.x & 31;
   const bool rans_warp = (a.mode == 0) && threadIdx.x < 32;
@@ -404,9 +508,55 @@ __global__ void __launch_bounds__(SCAN_MAX_THREADS) plane_kernel(PlaneArgs a) {
     }
   };
 
+  // The ring path fetches a step's cells and bias-row values a step ahead.
+  const Level lvs[4] = {lv1, lv2, lv3, lv4};
+  RingWork cur{}, nxt{};
+  if constexpr (RING) cur = ring_work<KF, NL>(lvs, 0);
+
   for (int t = 0; t < a.T2; ++t) {
     const int v4 = t - 4 * a.CTR;
-    if constexpr (KF > 0) {
+    if constexpr (RING) {
+      const int ch = threadIdx.x % KF, ch4 = threadIdx.x % NL, cell4 = threadIdx.x / NL;
+      // The q ring's row of this step's diagonal back to pad (its diagonal
+      // 21 back is dead: level 1 reads diagonals t - 20 .. t - 1).
+      for (int i = threadIdx.x; i < ns; i += blockDim.x) ring0[(t % RING_D) * ns + i] = pad;
+      if (cur.h[0] >= 0) {
+        const int v = t - RING_CTR, h = cur.h[0];
+        // Level 1's taps are one float each: four taps' rows in flight.
+        float y = __fadd_rn(ring_sum<1, KF, N1, 4>(p.w1, ch, ring0, ns, v, h), cur.bias[0]);
+        y = y < 0.f ? 0.f : y;
+        ring1[ring_slot(v, h, ns) * KF + ch] = y;
+        lv1.dst[((size_t)h * lv1.Wl + (v - RING_BH * h)) * KF + ch] = y;
+      }
+      __syncthreads();
+      lap(0);
+      for (int l = 2; l <= 3; ++l) {
+        const int h = l == 2 ? cur.h[1] : cur.h[2];
+        if (h >= 0) {
+          const int v = t - l * RING_CTR;
+          float y = ring_sum<KF, KF, NO>(l == 2 ? p.w2 : p.w3, ch, l == 2 ? ring1 : ring2, ns,
+                                         v, h);
+          y = __fadd_rn(y, l == 2 ? cur.bias[1] : cur.bias[2]);
+          if (l == 3)
+            y = __fadd_rn(y, ring1[ring_slot(v + 2 * RING_CTR, h + RING_K - 1, ns) * KF + ch]);
+          else
+            y = y < 0.f ? 0.f : y;
+          (l == 2 ? ring2 : ring3)[ring_slot(v, h, ns) * KF + ch] = y;
+          const Level& lv = l == 2 ? lv2 : lv3;
+          lv.dst[((size_t)h * lv.Wl + (v - RING_BH * h)) * KF + ch] = y;
+        }
+        __syncthreads();
+        lap(l - 1);
+      }
+      // The next step's cells and bias-row values: most warps have no
+      // level-4 cell, and the loads have the decode phase to land.
+      nxt = ring_work<KF, NL>(lvs, t + 1);
+      if (cur.h[3] >= 0) {
+        const float y = __fadd_rn(ring_sum<KF, NL, NO>(p.w4, ch4, ring3, ns, v4, cur.h[3]),
+                                  cur.bias[3]);
+        lg[cell4 * NL + ch4] = y < 0.f ? 0.f : y;
+      }
+    } else if constexpr (KF > 0) {
       level_band<1, KF, 1, N1>(lv1, t - a.CTR, BH, nullptr, xs);
       __syncthreads();
       lap(0);
@@ -447,6 +597,7 @@ __global__ void __launch_bounds__(SCAN_MAX_THREADS) plane_kernel(PlaneArgs a) {
           const int sym = a.true_plane[(size_t)b * HW + h * a.W + wc];
           cdf_select<NL>(freq, cdf, L, sym, &fs, &ss);
           q[(h + reach) * W0 + wc + reach] = p.centers[sym];
+          if constexpr (RING) ring0[ring_slot(t, h + reach, ns)] = p.centers[sym];
         }
         const size_t o = ((size_t)b * a.T2 + t) * R + lane;
         a.fsel[o] = fs;
@@ -476,6 +627,7 @@ __global__ void __launch_bounds__(SCAN_MAX_THREADS) plane_kernel(PlaneArgs a) {
           st = x;
           a.syms_out[(size_t)b * HW + h * a.W + wc] = sym;
           q[(h + reach) * W0 + wc + reach] = p.centers[sym];
+          if constexpr (RING) ring0[ring_slot(t, h + reach, ns)] = p.centers[sym];
         }
         gptr += (uint32_t)__popc(mask);
         window_slide(win, stream, a.cap, gptr, base, lane);
@@ -483,6 +635,7 @@ __global__ void __launch_bounds__(SCAN_MAX_THREADS) plane_kernel(PlaneArgs a) {
     }
     __syncthreads();
     lap(4);
+    if constexpr (RING) cur = nxt;
   }
   if (a.prof && threadIdx.x == 0)
     for (int i = 0; i < 5; ++i) a.prof[b * 5 + i] = prof[i];
@@ -545,16 +698,64 @@ static int launch(Kernel in_smem, Kernel in_dev, const PlaneArgs& a, dim3 grid, 
   return (int)cudaGetLastError();
 }
 
+// Whether the ring path can run `a` (the wrapper asked for it, a.rslot > 0):
+// the compile-time widths with the weights in shared memory, the taps in
+// raster order, a slot for every cell of a diagonal of levels 0-3 (and more
+// than the two rows below that a tap reaches), and a thread for every (cell,
+// channel) of a band of levels 1-4.
+static bool ring_ok(const PlaneArgs& a) {
+  if (!fast(a) || (a.force & FORCE_WDEV) || a.BH != RING_BH || a.CTR != RING_CTR ||
+      a.rslot <= RING_K / 2)
+    return false;
+  for (int l = 0; l < 4; ++l)
+    for (int k = 0; k < a.nt[l]; ++k)
+      if (a.tdy[l][k] != k / RING_K || a.tdx[l][k] != k % RING_K) return false;
+  for (int l = 0; l <= 4; ++l) {
+    const int Hl = a.H + (4 - l) * (RING_K - 1), Wl = a.W + (4 - l) * (RING_K - 1);
+    const int bh = (Wl + RING_BH - 1) / RING_BH, cells = Hl < bh ? Hl : bh;
+    if ((l < 4 && cells > a.rslot) || (l > 0 && cells * (l < 4 ? a.kf : a.L) > a.threads))
+      return false;
+  }
+  return true;
+}
+
 // The scan of one plane (mode 0 decode, mode 1 encode oracle), one block of
-// a.threads threads per image.
+// a.threads threads per image: the ring path where the wrapper gives
+// a.rslot, else the staged path.
 extern "C" int plane_forward(PlaneArgs a, cudaStream_t stream) {
   if (!valid(a) || a.threads < 32 || a.threads > SCAN_MAX_THREADS || a.threads % 32 != 0)
     return (int)cudaErrorInvalidValue;
+  if (a.rslot > 0) {
+    if (!ring_ok(a)) return (int)cudaErrorInvalidValue;
+    const auto kernel = plane_kernel<24, 6, 12, 13, false, true>;
+    const size_t smem = smem_bytes(a, false, ring_floats(a.rslot, a.kf));
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<a.B, a.threads, smem, stream>>>(a);
+    return (int)cudaGetLastError();
+  }
   if (fast(a))
-    return launch(plane_kernel<24, 6, 12, 13, false>, plane_kernel<24, 6, 12, 13, true>, a,
-                  dim3(a.B), a.threads, stream, (size_t)STAGE_CELLS * stage_stride<24, 13>());
-  return launch(plane_kernel<0, 0, 0, 0, false>, plane_kernel<0, 0, 0, 0, true>, a, dim3(a.B),
-                a.threads, stream);
+    return launch(plane_kernel<24, 6, 12, 13, false, false>,
+                  plane_kernel<24, 6, 12, 13, true, false>, a, dim3(a.B), a.threads, stream,
+                  (size_t)STAGE_CELLS * stage_stride<24, 13>());
+  return launch(plane_kernel<0, 0, 0, 0, false, false>, plane_kernel<0, 0, 0, 0, true, false>, a,
+                dim3(a.B), a.threads, stream);
+}
+
+// The dynamic shared memory a block of the ring path may have: the card's
+// opt-in limit less the kernel's static shared memory, in bytes (or a
+// negative cudaError). The wrapper takes the ring path where the weights and
+// the rings fit in it.
+extern "C" int plane_ring_room() {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&fa, (const void*)plane_kernel<24, 6, 12, 13, false, true>);
+  return err == cudaSuccess ? optin - (int)fa.sharedSizeBytes : -(int)err;
 }
 
 // Level a.level (1..4) of all a.B (image, plane) pairs at once: reads level
@@ -595,10 +796,10 @@ extern "C" int plane_weights_in_device(PlaneArgs a, int scan) {
   bool wdev = false;
   cudaError_t err;
   if (scan && fast(a))
-    err = weights_in_device((const void*)plane_kernel<24, 6, 12, 13, false>, a,
+    err = weights_in_device((const void*)plane_kernel<24, 6, 12, 13, false, false>, a,
                             (size_t)STAGE_CELLS * stage_stride<24, 13>(), &wdev);
   else if (scan)
-    err = weights_in_device((const void*)plane_kernel<0, 0, 0, 0, false>, a, 0, &wdev);
+    err = weights_in_device((const void*)plane_kernel<0, 0, 0, 0, false, false>, a, 0, &wdev);
   else
     err = weights_in_device(fast(a) ? (const void*)plane_level_kernel<24, 6, 12, 13, false>
                                     : (const void*)plane_level_kernel<0, 0, 0, 0, false>,

@@ -23,6 +23,10 @@ in training. ``wavefront_wdev`` counts the calls of kernel 2's wrapper
 (``coding/cuda_kernel.wavefront_forward``) whose instance reads the weights
 from device memory (``weights_in_device``: kf = 64 at L = 6, or ``force``),
 beside their own counter: 0 at kf = 24, every kernel-2 call at kf = 64.
+``plane_ring`` counts the calls of kernel 5's scan wrapper
+(``coding/planar_kernel.plane_forward``) that ran its ring path
+(``ring_fits``), beside their own counter: one a plane of a K = 5 kf = 24
+decode at the Kodak latent, 0 for K = 3.
 """
 
 from __future__ import annotations
@@ -67,6 +71,7 @@ LAUNCHES: Dict[str, int] = {
     'bias_rows': 0,
     'ae_epilogue': 0,
     'wavefront_wdev': 0,
+    'plane_ring': 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

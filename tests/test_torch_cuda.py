@@ -103,6 +103,7 @@ def test_codec_roundtrip_through_kernels(cuda_device):
     assert build.LAUNCHES['wavefront_forward_encode'] == 1
     assert build.LAUNCHES['wavefront_forward_decode'] == 1
     assert build.LAUNCHES['rans_reverse'] == 1
+    assert build.LAUNCHES['plane_ring'] == 0
     assert all(codec.stream_impl_id(r.bitstream) == codec.IMPL_CUDA for r in res)
 
 
@@ -325,6 +326,86 @@ def test_k5_weight_placement_keeps_the_bits(cuda_device, force):
     assert torch.equal(plk.level_forward(1, fold.top, shape, 5, src, bias[0], force=force), lv)
 
 
+# Kernel 5's scan on its ring path (the default where the rings fit) against
+# its staged path (FORCE_STAGED) and the generic instance: the Kodak latent
+# (13 slots a diagonal), a tall one whose rings wrap every 21 steps with 5
+# slots a row, and one too wide for the rings (40 cells a level-0 diagonal),
+# where every force takes the staged path.
+@pytest.mark.parametrize('shape,planes,ring', [((32, 64, 96), 3, True), ((2, 60, 24), 2, True),
+                                               ((2, 24, 480), 2, False)])
+def test_k5_ring_path_keeps_the_bits(cuda_device, shape, planes, ring):
+    """Plane by plane with real history: the encode oracle's fsel / ssel and
+    the decode's symbols, state, read pointer, every activation grid and q
+    are the same on the three paths, and LAUNCHES['plane_ring'] counts the
+    ring path's launches alone."""
+    K, b = 5, 2
+    pc, cfg = _planar_pc(cuda_device, K=K, kf=24, seed=21)
+    centers = torch.linspace(-2, 2, 6, device=cuda_device)
+    coder = planar_codec.PlanarCoder(pc, cfg, device=cuda_device)
+    sched, fold = coder._prepare(shape, centers)
+    syms = torch.from_numpy(np.random.RandomState(21).randint(0, 6, (b,) + shape)).int()
+    syms = syms.to(cuda_device)
+    one = (1,) + shape[1:]
+    forces = (0, plk.FORCE_STAGED, ck.FORCE_GENERIC)
+    hist = coder._history(fold, sched, b)
+    for d in range(planes):
+        bias = coder.bias_rows(fold, hist)
+        tp = syms[:, d].contiguous()
+        enc = []
+        for force in forces:
+            before = build.LAUNCHES['plane_ring']
+            enc.append(plk.plane_forward(plk.MODE_ENCODE, fold.top, shape, K, bias,
+                                         true_plane=tp, force=force))
+            assert build.LAUNCHES['plane_ring'] - before == int(ring and not force)
+        for out in enc[1:]:
+            assert torch.equal(out.fsel, enc[0].fsel) and torch.equal(out.ssel, enc[0].ssel)
+            for x, y in zip(out.acts + (out.q,), enc[0].acts + (enc[0].q,)):
+                assert torch.equal(x, y)
+        words, n, st, _ = plk.plane_reverse(enc[0].fsel, enc[0].ssel, one, K, rans.RANS_L)
+        streams = torch.zeros(b, sched.stream_cap, dtype=torch.int32, device=cuda_device)
+        for i in range(b):
+            streams[i, :n[i]] = words[i, :n[i]].flip(0)
+        args = dict(streams=streams, states=st, gptr=torch.zeros_like(n),
+                    thresh=torch.full((b, plk.R), 1 << 30, dtype=torch.int32,
+                                      device=cuda_device))
+        dec = []
+        for force in forces:
+            before = build.LAUNCHES['plane_ring']
+            dec.append(plk.plane_forward(plk.MODE_DECODE, fold.top, shape, K, bias,
+                                         force=force, **args))
+            assert build.LAUNCHES['plane_ring'] - before == int(ring and not force)
+        assert torch.equal(dec[0].syms, tp) and torch.equal(dec[0].gptr, n)
+        for out in dec[1:] + enc[:1]:
+            assert out.syms is None or (torch.equal(out.syms, dec[0].syms)
+                                        and torch.equal(out.states, dec[0].states)
+                                        and torch.equal(out.gptr, dec[0].gptr))
+            for x, y in zip(out.acts + (out.q,), dec[0].acts + (dec[0].q,)):
+                assert torch.equal(x, y)
+        coder._push(hist, dec[0])
+
+
+def test_k5_ring_path_with_the_clock_profile(cuda_device):
+    """The ring path with `prof` on decodes the same plane, and each of its
+    five phases counts clocks."""
+    shape, K, b = (3, 12, 20), 5, 2
+    coder, sched, fold, syms, bias = _plane_inputs(cuda_device, shape, K=K, plane=1, kf=24)
+    tp = syms[:, 1].contiguous()
+    ref = plk.plane_forward(plk.MODE_ENCODE, fold.top, shape, K, bias, true_plane=tp)
+    words, n, st, _ = plk.plane_reverse(ref.fsel, ref.ssel, (1,) + shape[1:], K, rans.RANS_L)
+    streams = torch.zeros(b, sched.stream_cap, dtype=torch.int32, device=cuda_device)
+    for i in range(b):
+        streams[i, :n[i]] = words[i, :n[i]].flip(0)
+    prof = torch.zeros(b, 5, dtype=torch.int64, device=cuda_device)
+    before = build.LAUNCHES['plane_ring']
+    out = plk.plane_forward(plk.MODE_DECODE, fold.top, shape, K, bias, streams=streams,
+                            states=st, gptr=torch.zeros_like(n),
+                            thresh=torch.full((b, plk.R), 1 << 30, dtype=torch.int32,
+                                              device=cuda_device), prof=prof)
+    assert build.LAUNCHES['plane_ring'] == before + 1
+    assert torch.equal(out.syms, tp) and torch.equal(out.gptr, n)
+    assert (prof > 0).all()
+
+
 def _planar_pc(device, K=5, kf=8, L=6, seed=0):
     cfg, _ = config_lib.parse_spec('base', 'pc')
     cfg = cfg.replace(kernel_size=K, arch_param__k=kf)
@@ -501,6 +582,7 @@ def test_planar_roundtrip_through_kernels(cuda_device):
     assert build.LAUNCHES['plane_forward_encode'] == 5      # 4 levels + the tables
     assert build.LAUNCHES['plane_forward_encode_scan'] == 0
     assert build.LAUNCHES['plane_forward_decode'] == shape[0]
+    assert build.LAUNCHES['plane_ring'] == 0      # kf = 8: the generic instance
     assert build.LAUNCHES['plane_reverse'] == 1
     assert build.LAUNCHES['bias_rows'] == 4 + shape[0]
     assert build.LAUNCHES['wavefront_forward_encode'] == 0
@@ -684,6 +766,7 @@ def test_k5_round_trip_launches_no_bias_row_convolution(cuda_device, monkeypatch
     names = [n for n, *_ in spans.take()]
     assert torch.equal(dec.long(), syms.long())
     assert build.LAUNCHES['bias_rows'] == 36 and names.count('planar.bias_rows') == 36
+    assert build.LAUNCHES['plane_ring'] == 32
     assert not convs
 
 
