@@ -32,13 +32,19 @@ FORBIDDEN_MODULES = ('jax', 'jaxlib', 'flax', 'imgcomp_cvpr_tpu')
 def process_env() -> Dict[str, str]:
     """The environment a run sets before it imports torch: build and kernel
     caches at fixed paths inside the checkout, so that only a cell's first
-    run in a checkout builds (the program's own nvcc and g++ libraries
-    already live in build/torch_kernels and build/native); one host thread
-    for OpenMP and MKL, so the host's side of each request does not wait on
-    a pool's threads that share the machine's cores."""
+    run in a checkout builds (the program's own nvcc libraries already
+    live in build/torch_kernels; PyTorch's jit-compiled elementwise
+    kernels, such as MS-SSIM's powers, go to build/torch_kernel_cache);
+    one host thread for OpenMP and MKL, so the host's side of each request
+    does not wait on a pool's threads that share the machine's cores.
+    PyTorch uses a kernel cache directory that it is given only where it
+    exists already, so that one is made here."""
+    kernel_cache = os.path.join(ROOT, 'build', 'torch_kernel_cache')
+    os.makedirs(kernel_cache, exist_ok=True)
     return {'TORCH_EXTENSIONS_DIR': os.path.join(ROOT, 'build', 'torch_extensions'),
             'TRITON_CACHE_DIR': os.path.join(ROOT, 'build', 'triton'),
             'CUDA_CACHE_PATH': os.path.join(ROOT, 'build', 'nv_compute_cache'),
+            'PYTORCH_KERNEL_CACHE_PATH': kernel_cache,
             'OMP_NUM_THREADS': '1', 'MKL_NUM_THREADS': '1'}
 
 
@@ -206,21 +212,27 @@ def judge(values: Dict[str, float], limits: Dict[str, float]):
     return all(v <= lim for _, v, lim in checks), checks
 
 
-def device_info(device) -> Dict:
+def device_info(device, peaks: Optional[List[int]] = None) -> Dict:
+    """The result's ``device``. ``peaks``, in a cell on several cards, holds
+    every rank's memory peak: ``count`` is then the number of cards and
+    ``memory_peak_bytes`` the fullest card's."""
     import torch
+    count = len(peaks) if peaks else 1
     if device.type == 'cuda':
+        peak = max(peaks) if peaks else int(torch.cuda.max_memory_allocated(device))
         return {'platform': 'gpu', 'kind': torch.cuda.get_device_name(device),
-                'count': 1, 'memory_peak_bytes': int(torch.cuda.max_memory_allocated(device))}
-    return {'platform': 'cpu', 'kind': 'cpu', 'count': 1, 'memory_peak_bytes': 0}
+                'count': count, 'memory_peak_bytes': peak}
+    return {'platform': 'cpu', 'kind': 'cpu', 'count': count, 'memory_peak_bytes': 0}
 
 
 def power_limit() -> str:
-    """The card's name and power limit as nvidia-smi reads them, or why not."""
+    """Each card's name and power limit as nvidia-smi reads them, or why not."""
     import subprocess
     try:
         out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                               '--format=csv,noheader'], capture_output=True, text=True,
                              timeout=20)
-        return out.stdout.strip().splitlines()[0] if out.returncode == 0 else 'not read'
-    except (OSError, subprocess.SubprocessError, IndexError):
+        cards = out.stdout.strip().splitlines()
+        return '; '.join(cards) if out.returncode == 0 and cards else 'not read'
+    except (OSError, subprocess.SubprocessError):
         return 'not read'

@@ -16,13 +16,20 @@ float32 with TF32 off. Compared, each as a share of the reference's:
   steps, leaving out leaves whose reference gradient is under a thousandth
   of the median leaf's (they move by round-off alone under Adam).
 
+- ``replica_gap_max`` (several cards only): after the three steps, the
+  largest absolute difference of any rank's parameters from rank 0's. Every
+  rank steps on the same averaged gradient, so the sound reading is 0.
+
+On several cards the program's numbers are rank 0's, and the reference
+follows them over the global batch (every rank's slice).
+
 The control is the reference in TF32 (each convolution's operands rounded
 to TF32's mantissa) in the program's place.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -72,20 +79,26 @@ def reference_run(ae0: Dict, pc0: Dict, batches: List[torch.Tensor], hp: Dict,
     return Run(losses, grad1, {k: params[k] - start[k] for k in params})
 
 
-def _worst_leaf(prog: Dict, refs: Dict, keys) -> float:
+def _worst_leaf(prog: Dict, refs: Dict, keys) -> Tuple[float, str]:
+    """(the worst leaf's gap, its name)."""
     norms = {k: float(torch.linalg.vector_norm(refs[k].double())) for k in refs}
     med = sorted(norms.values())[len(norms) // 2]
-    return max(abs(float(torch.linalg.vector_norm(prog[k].double())) - norms[k])
-               / max(norms[k], med) for k in keys)
+    return max((abs(float(torch.linalg.vector_norm(prog[k].double())) - norms[k])
+                / max(norms[k], med), k) for k in keys)
 
 
-def numbers(program: Run, reference: Run) -> Dict[str, float]:
+def numbers(program: Run, reference: Run, replica_gap: Optional[float] = None
+            ) -> Dict[str, float]:
     loss = max(abs(p - r) / abs(r) for p, r in zip(program.losses, reference.losses))
     gnorm = {k: float(torch.linalg.vector_norm(g.double())) for k, g in reference.grad1.items()}
     med = sorted(gnorm.values())[len(gnorm) // 2]
     moved = [k for k in gnorm if gnorm[k] >= NEGLIGIBLE * med]
-    return {'loss_gap_max': loss,
-            'grad_gap_max': _worst_leaf(program.grad1, reference.grad1, reference.grad1),
-            'change_gap_max': _worst_leaf(program.change, reference.change, moved),
-            'change_left_out': [k for k in gnorm if k not in moved],
-            'losses': [program.losses, reference.losses]}
+    grad, grad_leaf = _worst_leaf(program.grad1, reference.grad1, reference.grad1)
+    change, change_leaf = _worst_leaf(program.change, reference.change, moved)
+    out = {'loss_gap_max': loss, 'grad_gap_max': grad, 'change_gap_max': change}
+    if replica_gap is not None:
+        out['replica_gap_max'] = replica_gap
+    out.update({'grad_worst_leaf': grad_leaf, 'change_worst_leaf': change_leaf,
+                'change_left_out': [k for k in gnorm if k not in moved],
+                'losses': [program.losses, reference.losses]})
+    return out

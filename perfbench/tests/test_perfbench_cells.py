@@ -1,9 +1,10 @@
-"""Each cell end to end on the CPU at a tiny size (two 32x48 crops a batch,
-the program's plain PyTorch versions of its kernels), and the check that
-decides ``correct``: it passes the program, and fails the control (the
-reference one precision step below the configuration's, in the program's
-place) and a run whose timed path alters an answer where it is produced.
-The ``cuda`` test does the same on the card at the cells' own sizes."""
+"""Each one-card cell end to end on the CPU at a tiny size (two 32x48 crops
+a batch, the program's plain PyTorch versions of its kernels), and the
+check that decides ``correct``: it passes the program, and fails the
+control (the reference one precision step below the configuration's, in the
+program's place) and a run whose timed path alters an answer where it is
+produced. The cells on several cards have theirs in test_perfbench_dp.py.
+The ``cuda`` test does the same on the cards at every cell's own size."""
 
 import time
 
@@ -15,7 +16,8 @@ from perfbench import control, harness
 from perfbench.run import run_cell
 
 BENCH = harness.load_benchmark()
-CELLS = [w['name'] for w in BENCH['workloads']]
+ALL_CELLS = [w['name'] for w in BENCH['workloads']]
+CELLS = [w['name'] for w in BENCH['workloads'] if w['chips'] == 1]
 SEED = 2 ** 31 + 977
 
 
@@ -102,14 +104,20 @@ def test_half_batch_is_not_correct(cell):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('cell', CELLS)
+@pytest.mark.parametrize('cell', ALL_CELLS)
 def test_cell_on_the_card(cell):
-    """At the cell's own size: two seeds of the program pass, the control
-    fails (a few minutes a cell: set-up, two short windows, the reference)."""
-    if not torch.cuda.is_available():
-        pytest.skip('needs an NVIDIA card')
-    res = control.readings(BENCH, cell, [SEED, SEED + 1], 1, 2.0, torch.device('cuda', 0),
-                           log=lambda *_: None)
+    """At the cell's own size, one rank a card where it asks for several:
+    two seeds of the program pass, the control fails (a few minutes a cell:
+    set-up, two short windows, the reference)."""
+    chips = harness.workload(BENCH, cell)['chips']
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        pytest.skip(f'needs {chips} NVIDIA card(s)')
+    if chips == 1:
+        res = control.readings(BENCH, cell, [SEED, SEED + 1], 1, 2.0, torch.device('cuda', 0),
+                               log=lambda *_: None)
+    else:
+        res = control.readings_on_ranks(BENCH, cell, [SEED, SEED + 1], 1, 2.0, 'cuda',
+                                        verbose=False)
     limits = harness.load_json(f'perfbench/limits/{cell}.json')
     assert all(harness.judge(r['numbers'], limits)[0] for r in res['program'])
     assert not harness.judge(res['control'][0]['numbers'], limits)[0]

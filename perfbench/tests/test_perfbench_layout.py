@@ -40,10 +40,24 @@ def test_names_and_units():
             assert cell in e2e[m['moves']].get('workloads', CELLS)
 
 
+def four_chip_cells_fit(workloads) -> bool:
+    """At most a quarter of the cells, rounded down, ask for 4 chips; one always may."""
+    four = sum(1 for w in workloads if w['chips'] == 4)
+    return four <= max(1, len(workloads) // 4)
+
+
+def test_four_chip_cells():
+    assert four_chip_cells_fit(BENCH['workloads'])
+    seven = [{'chips': 4}] + [{'chips': 1}] * 6
+    assert four_chip_cells_fit(seven)
+    assert not four_chip_cells_fit([{'chips': 4}] * 2 + [{'chips': 1}] * 5)
+    assert four_chip_cells_fit([{'chips': 4}] * 2 + [{'chips': 1}] * 6)
+
+
 @pytest.mark.parametrize('cell', CELLS)
 def test_cell_files_resolve(cell):
     w = harness.workload(BENCH, cell)
-    assert w['chips'] == 1 and len(w['why']) <= 200
+    assert w['chips'] in (1, 4) and len(w['why']) <= 200
     cfg = harness.load_json(harness.config_entry(BENCH, w['config'])['file'])
     assert {'source', 'model', 'weights', 'reduced', 'assumed'} <= set(cfg)
     traffic = harness.load_json(os.path.join('perfbench', 'traffic', w['traffic'] + '.json'))
