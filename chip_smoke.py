@@ -118,8 +118,9 @@ Phases, one line each:
   9. data parallelism. 9b: the data-parallel train step at full width on
      phase 6's batch: world size 1 under NCCL, 2 steps (loss, the averaged
      gradients, the parameters) equal bit for bit to 2 non-parallel steps
-     (deterministic cuDNN), its ms a step beside the non-parallel step's
-     and phase 6b's; then 2 spawned ranks sharing the card under gloo
+     (deterministic cuDNN), its ms a step beside the non-parallel eager
+     step's (the cost of the collectives), phase 6b's and the non-parallel
+     step's as CUDA-graph replays; then 2 spawned ranks sharing the card under gloo
      against 1 rank, one step, the averaged gradients included (held to
      twice the distance between one rank's gradients on the batch and on
      the batch reversed).
@@ -1238,8 +1239,12 @@ def training_path(dev, rows):
         raise AssertionError(f'6b: step {state.step}, unmoved {unmoved}')
     if not all(np.isfinite(v) for v in eval_out.values()) or not eval_out['bpp'] > 0:
         raise AssertionError(f'6b: eval_step {eval_out}')
-    if (launches['quantize'] != TRAIN_STEPS + 1
-            or launches['quantize_bwd'] != TRAIN_STEPS):
+    # the first step eager, the second captured in the step's CUDA graph and
+    # replayed, the rest replays: kernels 1 and 7 once each a step, and
+    # kernel 1 once more for eval_step
+    if (launches['quantize'] != TRAIN_STEPS + 1 or launches['quantize_bwd'] != TRAIN_STEPS
+            or launches['train_graph_capture'] != 1
+            or launches['train_graph_replay'] != TRAIN_STEPS - 1):
         raise AssertionError(f'6b: launches {launches}')
     state2, _, hist2, wall, peak = run()
     loss_diff = max(abs(a['total_loss'] - b['total_loss']) / abs(a['total_loss'])
@@ -1277,7 +1282,10 @@ def training_path(dev, rows):
           f"bpp {eval_out['bpp']:.5f} ms_ssim_eval {eval_out['ms_ssim_eval']:.5f} psnr "
           f"{eval_out['psnr']:.3f}; launches in the {TRAIN_STEPS} steps and the eval_step: "
           f"quantize {launches['quantize']}, quantize_bwd {launches['quantize_bwd']} (one "
-          f'each a train step, one quantize for eval_step); ms per step (CUDA events, 5 steps): forward {fwd:.3f}, '
+          f'each a train step, eager or replayed, one quantize for eval_step), graph '
+          f"captures {launches['train_graph_capture']}, "
+          f"replays {launches['train_graph_replay']}; eager ms per step "
+          f'(CUDA events, 5 steps): forward {fwd:.3f}, '
           f'backward {bwd:.3f}, optimizer {opt:.3f}; {TRAIN_STEPS} steps in '
           f'{wall * 1e3:.1f} ms = {TRAIN_BATCH * TRAIN_STEPS / wall:.2f} img_per_sec (first '
           f'run, cold: {TRAIN_BATCH * TRAIN_STEPS / wall_cold:.2f}); peak memory '
@@ -1829,10 +1837,12 @@ def tools_path(dev, val_info):
 
 
 def recorded_step(trainer, state, batch):
-    """trainer.train_step, also returning the gradients that the optimizer
-    steps with (after a data-parallel trainer's all-reduce), on the host,
-    keyed 'ae.<name>' / 'pc.<name>', and the step's symbols (this rank's
-    slice) under the key 'symbols'."""
+    """The trainer's eager step (train_step's path with a mesh; on one card
+    train_step replays a CUDA graph from its second call, which calls no
+    optimizer.step to record at), also returning the gradients that the
+    optimizer steps with (after a data-parallel trainer's all-reduce), on
+    the host, keyed 'ae.<name>' / 'pc.<name>', and the step's symbols (this
+    rank's slice) under the key 'symbols'."""
     grads, step = {}, state.optimizer.step
     hook = state.ae.register_forward_hook(
         lambda mod, args, out: grads.__setitem__('symbols', out[0].symbols.detach().cpu()))
@@ -1845,7 +1855,7 @@ def recorded_step(trainer, state, batch):
 
     state.optimizer.step = recording
     try:
-        state, comps = trainer.train_step(state, batch)
+        state, comps = trainer._eager_step(state, batch)
     finally:
         state.optimizer.step = step
         hook.remove()
@@ -1965,19 +1975,22 @@ def dp_training(dev, step_ms6):
     if launches['quantize'] != 2 or launches['quantize_bwd'] != 2:
         raise AssertionError(f'9b: launches {launches}')
 
-    # step time: world 1 (in this process) beside the non-parallel step
+    # step time: world 1 (in this process, eager) beside the non-parallel
+    # step, eager (the cost of the collectives) and as CUDA-graph replays
     mesh = mesh_lib.init_process_group(0, 1, dev, f'tcp://localhost:{mesh_lib.free_port()}')
     try:
         dp = trainer_lib.Trainer(ae_config, pc_config, device=dev, mesh=mesh)
-        st_dp, st = dp.init_state(0), trainer.init_state(0)
         xb = torch.from_numpy(batch).to(dev)
         step_ms = {}
-        for name, tr, s_ in (('dp', dp, st_dp), ('plain', trainer, st)):
-            tr.train_step(s_, xb)
+        for name, step, s_ in (('dp', dp.train_step, dp.init_state(0)),
+                               ('plain', trainer._eager_step, trainer.init_state(0)),
+                               ('graph', trainer.train_step, trainer.init_state(0))):
+            step(s_, xb)
+            step(s_, xb)        # 'graph': the capture
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
             for _ in range(5):
-                tr.train_step(s_, xb)
+                step(s_, xb)
             ev[1].record()
             torch.cuda.synchronize()
             step_ms[name] = ev[0].elapsed_time(ev[1]) / 5
@@ -2057,7 +2070,8 @@ def dp_training(dev, step_ms6):
         f'(deterministic cuDNN): equal bit for bit (loss, comps, symbols, averaged gradients, '
         f'parameters); launches {launches}; {smi}: '
         f'ms a step (CUDA events, 5 steps, default cuDNN) data-parallel world 1 '
-        f'{step_ms["dp"]:.3f}, non-parallel {step_ms["plain"]:.3f} (phase 6b: {step_ms6:.3f}); '
+        f'{step_ms["dp"]:.3f}, non-parallel eager {step_ms["plain"]:.3f} (phase 6b: '
+        f'{step_ms6:.3f}), non-parallel CUDA-graph replays {step_ms["graph"]:.3f}; '
         f'2 ranks sharing the card under gloo (spawned, {spawn_s:.1f} s) vs 1 rank, one step, '
         f'deterministic cuDNN: '
         f'loss rel diff {d2_loss:.3g} (tol 1e-5), {sym_flips} of {half.numel()} symbols of '

@@ -27,6 +27,14 @@ beside their own counter: 0 at kf = 24, every kernel-2 call at kf = 64.
 (``coding/planar_kernel.plane_forward``) that ran its ring path
 (``ring_fits``), beside their own counter: one a plane of a K = 5 kf = 24
 decode at the Kodak latent, 0 for K = 3.
+
+``train_graph_capture`` and ``train_graph_replay`` count the training
+step's CUDA graph (``training/trainer.py``): a capture, and a replay (one
+a step from the second call of a trainer on a card without a mesh; the
+capturing call replays too). Kernels 1 and 7 inside the graph run without
+their wrappers' Python; the trainer takes back what the wrappers counted
+while the step was captured and adds it at each replay, so ``quantize``
+and ``quantize_bwd`` count one each a training step, eager or replayed.
 """
 
 from __future__ import annotations
@@ -72,6 +80,8 @@ LAUNCHES: Dict[str, int] = {
     'ae_epilogue': 0,
     'wavefront_wdev': 0,
     'plane_ring': 0,
+    'train_graph_capture': 0,
+    'train_graph_replay': 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -18,10 +18,16 @@ variant still builds 2 * (size // 2) + 1 taps, one more than the image is
 wide, and reflect-pads (total_pad, total_pad // 2) per axis before the blur
 (ref: ms_ssim.py:16-29): a 160x160 crop reaches that at its fifth scale
 (10x10).
+
+The windows and the scale weights are uploaded once per (window, device,
+dtype) and kept for the process (at most 11 windows a device): an upload
+from host memory waits for the card, and a training step captured in a
+CUDA graph may contain none, and reads them where they were captured.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import numpy as np
@@ -53,17 +59,31 @@ def _gauss_kernel_1d(sigma: float, size: int) -> np.ndarray:
     return (g / np.sum(np.abs(g))).astype(np.float32)
 
 
-def _blur_valid_separable(x: torch.Tensor, k1d: np.ndarray, pad: int = 0) -> torch.Tensor:
-    """Depthwise separable VALID blur over W then H of an NCHW tensor."""
+@functools.lru_cache(maxsize=None)
+def _gauss_1d_on(sigma: float, size: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_gauss_kernel_1d(sigma, size)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _fspecial_gauss_on(size: int, sigma: float, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_fspecial_gauss(size, sigma).astype(np.float32)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _weights_on(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    return torch.from_numpy(_WEIGHTS).to(device, dtype)
+
+
+def _blur_valid_separable(x: torch.Tensor, k: torch.Tensor, pad: int = 0) -> torch.Tensor:
+    """Depthwise separable VALID blur over W then H of an NCHW tensor with
+    the 1-D window ``k``."""
     if pad:
         x = tf_compat.reflect_pad_hw_nchw(x, ((pad, pad // 2), (pad, pad // 2)))
-    k = torch.from_numpy(k1d).to(x.device)
     y = tf_compat.depthwise_conv2d_valid_nchw(x, k[None, :])
     return tf_compat.depthwise_conv2d_valid_nchw(y, k[:, None])
 
 
-def _blur_valid_2d(x: torch.Tensor, k2d: np.ndarray) -> torch.Tensor:
-    k = torch.from_numpy(k2d.astype(np.float32)).to(x.device)
+def _blur_valid_2d(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return tf_compat.depthwise_conv2d_valid_nchw(x, k)
 
 
@@ -114,20 +134,20 @@ def _msssim(img1: torch.Tensor, img2: torch.Tensor, max_val: float, variant: str
     im1 = img1.to(dtype).permute(0, 3, 1, 2)
     im2 = img2.to(dtype).permute(0, 3, 1, 2)
     levels = _WEIGHTS.size
-    weights = torch.from_numpy(_WEIGHTS).to(im1.device, dtype)
+    weights = _weights_on(im1.device, dtype)
     mssim, mcs = [], []
     for level in range(levels):
         h, w = im1.shape[2], im1.shape[3]
         size = min(11, h, w)
         sigma = size * 1.5 / 11
         if variant == 'train':
-            k1d = _gauss_kernel_1d(sigma, size)
+            k1d = _gauss_1d_on(sigma, size, im1.device)
             total_pad = max(k1d.shape[0] - w, 0)
 
             def blur(x, k1d=k1d, total_pad=total_pad):
                 return _blur_valid_separable(x, k1d, total_pad)
         else:
-            k2d = _fspecial_gauss(size, sigma)
+            k2d = _fspecial_gauss_on(size, sigma, im1.device)
 
             def blur(x, k2d=k2d):
                 return _blur_valid_2d(x, k2d)
@@ -145,8 +165,28 @@ def _msssim(img1: torch.Tensor, img2: torch.Tensor, max_val: float, variant: str
         # loss only.
         mcs_t = torch.clamp(mcs_t, min=1e-6)
         mssim_t = torch.clamp(mssim_t, min=1e-6)
-    return (torch.prod(mcs_t[:levels - 1] ** weights[:levels - 1]) *
+    prod = _ProdOfPositives.apply if variant == 'train' else torch.prod
+    return (prod(mcs_t[:levels - 1] ** weights[:levels - 1]) *
             (mssim_t[levels - 1] ** weights[levels - 1]))
+
+
+class _ProdOfPositives(torch.autograd.Function):
+    """torch.prod of a vector with no zero entry, with the gradient torch
+    gives it then, grad * (prod / x), without torch's test for zeros: that
+    test (a nonzero()) waits for the card, which a training step captured
+    in a CUDA graph may not do. The training variant's factors are
+    cs ** w with cs clamped at 1e-6 and 0 < w < 1, never 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.prod(x)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return grad * (out / x)
 
 
 def msssim_train(img1: torch.Tensor, img2: torch.Tensor, max_val: float = 255.0

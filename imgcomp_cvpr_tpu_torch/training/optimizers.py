@@ -15,6 +15,18 @@ Schedules (ref: training_helpers.py:22-35): FIXED, or DECAY,
 lr_initial * rate ** floor(step / (itr_per_epoch * interval)) (no floor
 when lr_schedule_decay_staircase is False), the step counted from 0 at
 the first update.
+
+For a step captured in a CUDA graph (training/trainer.py),
+``make_capturable`` turns every group into Adam's capturable form: the step
+counter on the device and the rate a 0-d float32 tensor there, which the
+LambdaLR fills in place (``schedule``, on the host after each replay), so a
+replayed update reads the rate of its own step. Capturable Adam takes the
+bias corrections on the device in float32 and divides in another order
+than the host form, so its updates round differently from the CPU's.
+``state_dict`` saves every group in the host form (a float rate, the
+counter on the CPU, ``capturable`` False), so checkpoints do not depend on
+the path that wrote them; ``load_state_dict`` replaces the state's tensors
+and counts a new ``version``, after which a captured step is stale.
 """
 
 from __future__ import annotations
@@ -76,22 +88,55 @@ class GroupedOptimizer:
                  schedulers: Dict[str, LambdaLR]):
         self.optimizers = optimizers
         self.schedulers = schedulers
+        self.version = 0        # load_state_dict counts one
 
     def zero_grad(self) -> None:
         for opt in self.optimizers.values():
             opt.zero_grad(set_to_none=True)
 
     def step(self) -> None:
-        for name, opt in self.optimizers.items():
+        """Every group's update, then every group's next rate (no group's
+        update reads another's rate)."""
+        self.update()
+        self.schedule()
+
+    def update(self) -> None:
+        """The groups' updates, without their schedules."""
+        for opt in self.optimizers.values():
             opt.step()
-            self.schedulers[name].step()
+
+    def schedule(self) -> None:
+        """Each group's rate for the next update (a capturable group's rate
+        tensor, which a captured update reads, is filled in place)."""
+        for sched in self.schedulers.values():
+            sched.step()
+
+    @property
+    def graphable(self) -> bool:
+        """Whether every group can run in a CUDA graph (Adam's capturable form)."""
+        return all(type(o) is torch.optim.Adam for o in self.optimizers.values())
+
+    def make_capturable(self) -> None:
+        """Every group in Adam's capturable form, on its parameters' device
+        (idempotent; see the module docstring)."""
+        for opt in self.optimizers.values():
+            dev = opt.param_groups[0]['params'][0].device
+            for group in opt.param_groups:
+                group['capturable'] = True
+                lr = group['lr']
+                if not (torch.is_tensor(lr) and lr.device == dev):
+                    group['lr'] = torch.full((), float(lr), dtype=torch.float32, device=dev)
+            for st in opt.state.values():
+                if 'step' in st and st['step'].device != dev:
+                    st['step'] = st['step'].to(device=dev, dtype=torch.float32)
 
     def learning_rates(self) -> Dict[str, float]:
         """The rate each group's next update will use."""
-        return {name: opt.param_groups[0]['lr'] for name, opt in self.optimizers.items()}
+        return {name: float(opt.param_groups[0]['lr'])
+                for name, opt in self.optimizers.items()}
 
     def state_dict(self) -> Dict[str, Dict]:
-        return {'optimizer': {k: o.state_dict() for k, o in self.optimizers.items()},
+        return {'optimizer': {k: _host_form(o.state_dict()) for k, o in self.optimizers.items()},
                 'schedulers': {k: s.state_dict() for k, s in self.schedulers.items()}}
 
     def load_state_dict(self, state: Dict[str, Dict]) -> None:
@@ -99,6 +144,21 @@ class GroupedOptimizer:
             o.load_state_dict(state['optimizer'][k])
         for k, s in self.schedulers.items():
             s.load_state_dict(state['schedulers'][k])
+        self.version += 1
+
+
+def _host_form(sd: Dict) -> Dict:
+    """An optimizer's state dict as the host form saves it: float rates,
+    ``capturable`` False, step counters on the CPU (the groups are the
+    dict's own; the per-parameter states are copied, not changed)."""
+    for group in sd['param_groups']:
+        if torch.is_tensor(group['lr']):
+            group['lr'] = float(group['lr'])
+        if group.get('capturable'):
+            group['capturable'] = False
+    sd['state'] = {i: {k: v.cpu() if k == 'step' else v for k, v in st.items()}
+                   for i, st in sd['state'].items()}
+    return sd
 
 
 def make_optimizer(ae, pc, ae_config, pc_config, itr_per_epoch: int) -> GroupedOptimizer:

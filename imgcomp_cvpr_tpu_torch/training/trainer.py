@@ -12,6 +12,30 @@ groups. While a profiler records, the phases are spans (utils/spans.py):
 a scan that hides its remote-dispatch latency) has no counterpart: PyTorch
 enqueues each step's kernels without waiting for the device.
 
+On a card without a mesh the step is one CUDA graph, so the host launches
+one graph a step instead of thousands of kernels. The first call for a
+(state, optimizer state, batch shape, batch dtype) runs eagerly on the
+trainer's capture stream, with the optimizer in Adam's capturable form
+(optimizers.py): Adam's state, cuDNN's plans and kernel 7's scratch come
+into being there. The second captures the whole step (the cast of the
+batch, forward, backward, the three updates) and replays it; every later
+call copies the batch into the graph's input buffer and replays, inside
+the span ``train.graph``. Then the host steps the schedules (each rate a
+device tensor, filled in place) and counts a new version of every
+parameter and buffer the graph wrote, as an eager update would (the eval
+towers' folded operands are keyed on it). comps come out as copies of the
+graph's outputs. One graph is kept: another key, ``load_state_dict`` of
+the optimizer (its ``version``) or another state warms up and captures
+anew. ``LAUNCHES['train_graph_capture']`` and ``['train_graph_replay']``
+count the captures and the replays (ops/kernels/build.py); the launches
+that the wrappers of kernels 1 and 7 count while the step is captured are
+taken back then and added at each replay, so ``LAUNCHES`` counts the
+kernels the card runs. The graph runs
+the eager step's kernels in its order, so it gives the bits of the eager
+step with the same (capturable) optimizer, where cuDNN's algorithms are
+deterministic. On the CPU, with a mesh, or with a non-Adam group, the step
+is eager, with the optimizer in its host form.
+
 With a ``mesh`` (parallel/mesh.py) the trainer is one rank of a
 data-parallel group: a step takes this rank's slice of the global batch,
 every batch mean of the loss (BatchNorm statistics, the rate terms,
@@ -23,8 +47,9 @@ step is the one-device step on the global batch. Modules start from rank
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +59,7 @@ from ..models import autoencoder as ae_lib
 from ..models import probclass as pc_lib
 from ..ops import bits as bits_lib
 from ..ops import msssim as msssim_lib
+from ..ops.kernels import build
 from ..parallel import mesh as mesh_lib
 from ..utils.spans import span
 from . import distortions as distortions_lib
@@ -69,6 +95,9 @@ class Trainer:
         self.device = mesh.device if mesh is not None else resolve_device(device)
         self.itr_per_epoch = opt_lib.num_itr_per_epoch(
             num_train_images, ae_config.batch_size, num_crops_per_img)
+        self._graph: Optional[_StepGraph] = None   # the captured step
+        self._warm: Optional[tuple] = None         # (key, state, optimizer) warmed up last
+        self._stream = None                        # the capture stream
 
     def init_state(self, seed: int) -> TrainState:
         """Fresh modules on the trainer's device, initialised from ``seed``
@@ -124,7 +153,14 @@ class Trainer:
     def train_step(self, state: TrainState, batch
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One update of ``state`` in place. comps are 0-d tensors on the
-        device (no host sync here)."""
+        device (no host sync here). On a card without a mesh, a CUDA graph
+        replay from the second call on (module docstring)."""
+        if self._graphs_on(state):
+            return self._graphed_step(state, batch)
+        return self._eager_step(state, batch)
+
+    def _eager_step(self, state: TrainState, batch
+                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         state.optimizer.zero_grad()
         with span('train.forward'):
             total, comps = self.loss_fn(state, batch)
@@ -138,6 +174,85 @@ class Trainer:
             state.optimizer.step()
         state.step += 1
         return state, {k: v.detach() for k, v in comps.items()}
+
+    # ------------------------------------------------------------------
+    # The step as a CUDA graph
+
+    def _graphs_on(self, state: TrainState) -> bool:
+        return (self.mesh is None and self.device.type == 'cuda'
+                and state.optimizer.graphable)
+
+    def _graphed_step(self, state: TrainState, batch
+                      ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        if isinstance(batch, np.ndarray):
+            batch = torch.from_numpy(batch)
+        opt = state.optimizer
+        key = (id(state), id(opt), opt.version, tuple(batch.shape), batch.dtype)
+        if self._warm is None or self._warm[0] != key:
+            self._graph = None      # its memory goes before another's comes
+            self._warm = (key, state, opt)      # the refs keep the key's ids from reuse
+            opt.make_capturable()
+            with self._capture_stream():
+                return self._eager_step(state, batch)
+        g = self._graph
+        if g is None:
+            x = torch.empty(batch.shape, dtype=batch.dtype, device=self.device)
+            opt.zero_grad()     # the graph's backward makes the gradients in its pool
+            before = dict(build.LAUNCHES)
+            with self._capture_stream():
+                graph, names, comps = self._capture(state, x)
+            # the wrappers counted launches that the capture only recorded:
+            # they are counted at each replay instead
+            launches = {k: n - before.get(k, 0) for k, n in build.LAUNCHES.items()
+                        if n != before.get(k, 0)}
+            for k, n in launches.items():
+                build.LAUNCHES[k] -= n
+            g = self._graph = _StepGraph(x, graph, names, comps, [
+                *state.ae.parameters(), *state.ae.buffers(),
+                *state.pc.parameters(), *state.pc.buffers()], launches)
+            build.LAUNCHES['train_graph_capture'] += 1
+        with span('train.graph'):
+            g.batch.copy_(batch, non_blocking=True)
+            g.graph.replay()
+            comps = g.comps.clone()
+        build.LAUNCHES['train_graph_replay'] += 1
+        for k, n in g.launches.items():
+            build.LAUNCHES[k] += n
+        opt.schedule()
+        torch.autograd.graph.increment_version(g.written)
+        state.step += 1
+        return state, dict(zip(g.names, comps.unbind()))
+
+    @contextlib.contextmanager
+    def _capture_stream(self):
+        """The trainer's side stream for the warm-up step and the capture,
+        ordered after and before the caller's stream."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        caller = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(caller)
+        with torch.cuda.stream(self._stream):
+            yield
+        caller.wait_stream(self._stream)
+
+    def _graph_body(self, state: TrainState, x: torch.Tensor
+                    ) -> Tuple[List[str], torch.Tensor]:
+        """What the graph holds: the step's work on the input buffer ``x``;
+        comps stacked in one tensor, in the order of the names."""
+        total, comps = self.loss_fn(state, x)
+        total.backward()
+        state.optimizer.update()
+        names = list(comps)
+        return names, torch.stack([comps[k].detach() for k in names])
+
+    def _capture(self, state: TrainState, x: torch.Tensor):
+        """(graph, comps names, comps tensor) of the step captured on the
+        current stream; nothing runs until a replay."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=torch.cuda.current_stream(self.device),
+                              capture_error_mode='thread_local'):
+            names, comps = self._graph_body(state, x)
+        return graph, names, comps
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
@@ -155,3 +270,14 @@ class Trainer:
             out['ms_ssim_eval'] = msssim_lib.msssim_eval(x, x_out)
         return out
 
+
+@dataclass
+class _StepGraph:
+    """The captured training step of the trainer's warmed-up key, and what
+    it reads and writes outside its kernels' own pool."""
+    batch: torch.Tensor             # the input buffer, copied into before a replay
+    graph: object                   # torch.cuda.CUDAGraph
+    names: List[str]                # comps, in the order of ``comps``
+    comps: torch.Tensor             # (len(names),) float32, overwritten by each replay
+    written: List[torch.Tensor]     # parameters and buffers the updates write
+    launches: Dict[str, int]        # build.LAUNCHES a replay adds (the wrappers' in the capture)
